@@ -1,0 +1,54 @@
+"""The port stands alone: it imports neither jax nor the reference package,
+and the ids it hands the CUDA kernel are the ids the kernel's source names."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import repro_torch
+from repro_torch.core import kernels_math as km
+
+SRC = str(pathlib.Path(__file__).resolve().parent.parent / "src")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import repro_torch
+names = ["repro_torch"] + [
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                          prefix="repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(
+    k for k, v in sys.modules.items()
+    if v is not None and (k == "jax" or k.startswith(("jax.", "jaxlib"))
+                          or k == "repro" or k.startswith("repro.")))
+print("IMPORTED", len(names))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        timeout=300, env={"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
+    assert n >= 15, proc.stdout
+
+
+def test_no_module_of_the_port_names_jax_or_the_reference():
+    root = pathlib.Path(repro_torch.__file__).resolve().parent
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    hits = [str(p) for p in root.rglob("*.py") if pat.search(p.read_text())]
+    assert hits == []
+
+
+def test_kernel_ids_match_the_cuda_source():
+    cu = (pathlib.Path(repro_torch.__file__).resolve().parent
+          / "kernels" / "csrc" / "stkde_tile.cu").read_text()
+    defines = dict(re.findall(r"^#define (K[ST]_[A-Z_]+) (\d+)$", cu, re.M))
+    want = {fn.__name__.upper(): str(i) for fn, i in km.KERNEL_IDS.items()}
+    assert defines == want
