@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels for the STKDE compute hot-spot.
 
 csrc/stkde_tile.cu — PB-SYM tile accumulation, CUDA C++ for sm_90a
-stkde_tile.py      — its wrapper (launch, launch counter, modes)
+                     (work items over the tiles' points, 3xTF32 mma.sync)
+stkde_tile.py      — its wrapper (work plan, launch, launch counter, modes)
 build.py           — nvcc build of csrc/ at first use, ctypes loading
 ops.py             — public wrappers (bucketing + kernel + slice)
 ref.py             — the plain PyTorch version (CPU path, allclose target)

@@ -1,10 +1,10 @@
 """Builds the CUDA sources under ``csrc/`` into shared libraries, at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into ``build/repro_torch/<name>-<hash of the source>.so`` at
-the root of the checkout, then loaded with ``ctypes``. Nothing but the sources
-in the repository goes into the build; a changed source gets a new file name,
-so a stale library is never loaded. A failed build raises
+for ``sm_90a`` into ``build/repro_torch/<name>-<hash of csrc/>.so`` at the
+root of the checkout, then loaded with ``ctypes``. Nothing but the sources in
+the repository goes into the build; a changed source or header gets a new
+file name, so a stale library is never loaded. A failed build raises
 ``KernelUnavailableError`` with the compiler's output.
 """
 from __future__ import annotations
@@ -51,14 +51,18 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of every
+    source under ``csrc/`` (``*.cu``, ``*.cuh``, ``*.h``) and of the flags,
+    so that a changed header, too, gives a new file and forces a rebuild."""
+    src = csrc / f"{name}.cu"
     if not src.is_file():
         raise KernelUnavailableError(f"no kernel source {src}")
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return build_dir() / f"{name}-{digest}.so"
+    h = hashlib.sha256(name.encode() + b"\0" + " ".join(NVCC_FLAGS).encode())
+    for p in sorted(q for pat in ("*.cu", "*.cuh", "*.h")
+                    for q in csrc.glob(pat)):
+        h.update(b"\0" + p.name.encode() + b"\0" + p.read_bytes())
+    return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

@@ -25,8 +25,9 @@ def default_tile(dom: Domain) -> Tuple[int, int, int]:
     multiple of 8.
 
     These are the reference's shapes, kept so that both packages bucket
-    alike; a 32x32x16 tile is 1024 columns of 16 sums, four columns to each
-    of the kernel's 256 threads. They have not been tuned on the card yet.
+    alike; a 32x32x16 tile is 1024 columns of 16 sums, one pass of the
+    kernel's 8 warps x 8 strips of 16 columns. They have not been tuned on
+    the card yet.
     """
     bx = int(min(bucketing.round_up(dom.Gx, 8), 32))
     by = int(min(bucketing.round_up(dom.Gy, 8), 32))
@@ -76,8 +77,9 @@ def stkde_tiled(
 
     ``mode`` ("auto" | "reference" | "compiled") selects what runs — see
     ``stkde_tiles_cuda``. ``use_ref=True`` calls the plain version directly.
-    The kernel is given the tiles' true loads, so a tile's walk ends with its
-    last real point and not at the padded capacity.
+    The kernel is given the tiles' true loads from the host, so a tile's walk
+    ends with its last real point and not at the padded capacity, and the
+    kernel's work plan needs no copy back from the device.
     """
     n = len(points)
     if tile is None:
@@ -91,6 +93,7 @@ def stkde_tiled(
     else:
         padded = stkde_tiles_cuda(
             t.pts_tiles, t.valid_tiles, dom, tile, t.cap, n, chunk_eff,
-            ks, kt, mode=mode, counts=t.counts,
+            ks, kt, mode=mode, counts=torch.from_numpy(
+                np.ascontiguousarray(b.counts, dtype=np.int32)),
         )
     return padded[: dom.Gx, : dom.Gy, : dom.Gt]
