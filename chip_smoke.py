@@ -12,7 +12,13 @@ tile's count against walking the whole buckets under the same ``seg``),
 times it beside its bound, then drives the port's main path —
 ``repro_torch.core.api.stkde``, both branches — on two rows of the paper's
 Table 2 at full size (``Dengue_Lr-Hb``, ``PollenUS_Hr-Lb``) and checks what
-comes out.
+comes out. Then ``gold`` holds the tile kernel, the scatter and ``vb_dec``
+against ``vb`` (the paper's Algorithm 1) on the card at full-size
+``Dengue_Lr-Hb``, and ``chunked`` drives the crash-safe ``stkde_chunked``
+at full-size ``PollenUS_Hr-Lb`` (two runs, a partial run resumed, a child
+process SIGKILLed mid-run and resumed: all bit for bit), times the
+scatter's fixed-order adds against its atomic ones, and streams the first
+chunks of ``eBird_Lr-Lb``.
 
 Every phase prints one JSON line. Any failure exits non-zero; without a CUDA
 device the script exits non-zero before it prints a result. The last line is
@@ -487,9 +493,10 @@ def phase_kernels() -> dict:
     }
 
 
-def phase_main_path(kern: dict) -> int:
+def phase_main_path(kern: dict) -> dict:
     """``stkde`` through the public entry point with the default device, both
-    branches, on two Table-2 rows at full n. Returns the kernel's launches."""
+    branches, on two Table-2 rows at full n. Returns the kernel's launches
+    and each instance's tile-branch grid."""
     from repro_torch.core import get_instance, stkde
     from repro_torch.kernels import stkde_tile
 
@@ -564,7 +571,341 @@ def phase_main_path(kern: dict) -> int:
     emit("main_path", launches=launches, instances=rows)
     if not ok:
         fail("main path: a check failed (see the main_path line)")
+    return {"launches": launches,
+            "tiled": {r[0].name: r[3] for r in runs}}
+
+
+def host_timed(fn):
+    """``fn()`` and its seconds on the host clock, the card waited for."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gold_cases():
+    """(label, dom, points) of the reference's gold-standard tests: its small
+    domain, and the non-unit resolution and origin domain."""
+    from repro_torch.core import Domain, clustered_events
+
+    small = Domain(gx=24.0, gy=18.0, gt=14.0, sres=1.0, tres=1.0, hs=3.0,
+                   ht=2.0)
+    nonunit = Domain(gx=20.0, gy=15.0, gt=30.0, sres=0.6, tres=2.2, hs=2.0,
+                     ht=4.0, ox=-7.0, oy=3.0, ot=100.0)
+    rng = np.random.default_rng(4)
+    pts = (np.array([-7.0, 3.0, 100.0])
+           + rng.random((200, 3)) * np.array([20.0, 15.0, 30.0])
+           ).astype(np.float32)
+    return [("small", small, clustered_events(100, small, seed=2)),
+            ("nonunit", nonunit, pts)]
+
+
+def phase_gold(main: dict) -> int:
+    """``vb`` (the paper's Algorithm 1) on the card at full-size
+    ``Dengue_Lr-Hb``, and the three other ways to the same grid held
+    against it: the tile branch of ``stkde`` (the hand-written kernel), its
+    scatter branch and ``vb_dec``. Then ``vb`` against the scatter with the
+    paper-verbatim kernel functions at small domains, where a quotient that
+    is not a true division flips their support test. Returns the kernel's
+    launches in this phase."""
+    from repro_torch.core import get_instance, pb, stkde, vb, vb_dec
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import stkde_tile
+
+    inst = get_instance("Dengue_Lr-Hb")
+    dom, pts = inst.domain(), inst.points()
+    stkde_tile.reset_launch_count()
+    tiled, tiled_s = host_timed(lambda: stkde(pts, dom, use_tiled_kernel=True))
+    launches = stkde_tile.launch_count()
+    scatter, scatter_s = host_timed(lambda: stkde(pts, dom))
+    gold, vb_s = host_timed(lambda: vb(pts, dom))
+    dec, vb_dec_s = host_timed(lambda: vb_dec(pts, dom))
+    scale = float(gold.abs().max())
+    atol = BRANCH_TOL["atol_rel_to_max"] * scale
+    vs = {name: compare(g, gold, BRANCH_TOL["rtol"], atol)
+          for name, g in (("tile_kernel", tiled), ("scatter", scatter),
+                          ("vb_dec", dec))}
+    same_tiled = bool(torch.equal(tiled, main["tiled"][inst.name]))
+    row = {
+        "instance": inst.name, "n": len(pts), "grid": list(dom.grid_shape),
+        "kernel_evaluations": dom.grid_voxels * len(pts),
+        "vb_s": vb_s, "vb_dec_s": vb_dec_s, "tile_branch_s": tiled_s,
+        "scatter_branch_s": scatter_s,
+        "tolerance": {"rtol": BRANCH_TOL["rtol"], "atol": atol,
+                      "why": "fp32 sums of up to n terms per voxel in three "
+                             "orders (vb's tree sums over point panels, the "
+                             "kernel's point walk, the scatter's adds); the "
+                             "bar that holds the two branches of stkde"},
+        "vs_vb": vs,
+        "worst_err_as_share_of_tolerance": max(
+            v["worst_err_over_allowed"] for v in vs.values()),
+        "tile_grid_same_as_main_path": same_tiled,
+        "matmul_allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+        "launches": launches,
+    }
+    verbatim = []
+    kw = dict(ks=km.ks_paper_verbatim, kt=km.kt_paper_verbatim)
+    for label, d, p in gold_cases():
+        g = vb(p, d, **kw)
+        r = compare(pb(p, d, variant="sym", **kw), g, **SMALL_TOL)
+        r["vb_same_as_host"] = compare(
+            g.cpu(), vb(p, d, device="cpu", **kw), **SMALL_TOL)
+        r["label"] = label
+        r["ok"] = r["ok"] and r["vb_same_as_host"]["ok"]
+        verbatim.append(r)
+    ok = (all(v["ok"] for v in vs.values()) and same_tiled and launches == 1
+          and all(r["ok"] for r in verbatim)
+          and tuple(gold.shape) == dom.grid_shape and gold.is_cuda
+          and bool(torch.isfinite(gold).all())
+          and not row["matmul_allow_tf32"])
+    emit("gold", **row, paper_verbatim={"tolerance": SMALL_TOL,
+                                        "cases": verbatim})
+    if not ok:
+        fail("gold: a grid disagrees with vb (see the gold line)")
     return launches
+
+
+def scatter_adding_with(pts: torch.Tensor, dom, add) -> torch.Tensor:
+    """The PB-SYM scatter of ``core/pb.py``, built from its own pieces, with
+    each block added by ``add(grid, lin, vals)``: the yardsticks for the
+    fixed-order adds of the chunked path."""
+    from repro_torch.core import kernels_math as km
+    from repro_torch.core.pb import (_block_size, _cylinder_values,
+                                     _padded_blocks)
+
+    pts_b, vox_b = _padded_blocks(pts, dom, _block_size(dom, 1 << 22))
+    grid = torch.zeros((dom.grid_voxels + 1,), dtype=torch.float32,
+                       device=pts.device)
+    for p, v in zip(pts_b, vox_b):
+        lin, vals = _cylinder_values(p, v, dom, "sym", km.DEFAULT_KS,
+                                     km.DEFAULT_KT, len(pts))
+        add(grid, lin.reshape(-1), vals.reshape(-1))
+    return grid[:-1].reshape(dom.grid_shape)
+
+
+SCATTER_ADDS = {
+    # PR 12's scatter: atomics, in an order that changes from run to run
+    "atomic": lambda p, d: scatter_adding_with(
+        p, d, lambda g, i, v: g.index_add_(0, i, v)),
+    # PyTorch's sorted accumulation: fixed order, one thread a voxel's run
+    "index_put": lambda p, d: scatter_adding_with(
+        p, d, lambda g, i, v: g.index_put_((i,), v, accumulate=True)),
+}
+
+
+def fixed_order_scatter(pts: torch.Tensor, dom) -> torch.Tensor:
+    """The PB-SYM scatter as the chunked path runs it (fixed-order adds)."""
+    from repro_torch.core import kernels_math as km
+    from repro_torch.core.pb import _pb_impl
+
+    return _pb_impl(pts, dom, "sym", km.DEFAULT_KS, km.DEFAULT_KT, 1 << 22,
+                    None, deterministic=True)
+
+
+def chunk_split() -> list:
+    """Per chunk, from the spans of the last chunked run: device compute,
+    device-to-host copy, host float64 add, journal write (seconds)."""
+    from repro_torch.obs import trace
+
+    rows = {}
+    for name, key in (("chunk.device", "device_compute_s"),
+                      ("chunk.d2h", "d2h_s"),
+                      ("chunk.accumulate", "host_add_s"),
+                      ("chunk.journal", "journal_write_s")):
+        for sp in trace.get_tracer().spans(name):
+            r = rows.setdefault(sp.attrs["chunk"], {"chunk": sp.attrs["chunk"]})
+            r[key] = r.get(key, 0.0) + sp.duration_s
+    return [rows[c] for c in sorted(rows)]
+
+
+KILL_CODE = """
+import sys
+sys.path.insert(0, {src!r})
+from repro_torch.core import get_instance
+from repro_torch.core.api import stkde_chunked
+from repro_torch.resilience import faults
+
+inst = get_instance("PollenUS_Hr-Lb")
+# delay-only fault widens the kill window without touching the math
+faults.configure("stkde.chunk:delay:1.0:1.5", seed=0)
+stkde_chunked(inst.points(), inst.domain(), chunk_size={chunk},
+              journal={jdir!r})
+print("DONE", flush=True)
+"""
+
+
+def sigkill_run(jdir: str, chunk: int) -> dict:
+    """Run the journaled query in a child process on the card, SIGKILL it
+    once the second chunk's snapshot has landed, and leave its journal."""
+    import os
+    import signal
+
+    snap1 = os.path.join(jdir, "grid_00000001.npy")
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_FAULTS"}
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         KILL_CODE.format(src=str(ROOT / "src"), chunk=chunk, jdir=jdir)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            if os.path.exists(snap1) or proc.poll() is not None:
+                break
+            time.sleep(0.02)
+        alive = proc.poll() is None
+        if alive:
+            proc.send_signal(signal.SIGKILL)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    out, err = proc.communicate()
+    return {"killed_while_running": alive, "rc": rc,
+            "printed_done": "DONE" in out, "stderr_tail": err[-400:]}
+
+
+def phase_chunked() -> dict:
+    """``stkde_chunked`` on the card: at full-size ``PollenUS_Hr-Lb`` in 5
+    chunks with a journal, bit-identical across two runs, partial + resume
+    and SIGKILL + resume, and within tolerance of the monolithic grid; the
+    scatter's fixed-order adds against the atomic ones; then the first
+    chunks of ``eBird_Lr-Lb`` as a time-sliced stream."""
+    import os
+    import resource
+    import tempfile
+
+    from repro_torch.core import get_instance, stkde, stkde_chunked
+    from repro_torch.data import stkde_stream
+    from repro_torch.obs import trace
+
+    inst = get_instance("PollenUS_Hr-Lb")
+    dom, pts = inst.domain(), inst.points()
+    chunk = 131072
+    dev_pts = torch.from_numpy(pts).cuda()
+
+    # fixed-order adds against atomics and index_put_, whole scatter, in
+    # turns on one card
+    fns = {**SCATTER_ADDS, "fixed_order": fixed_order_scatter}
+    times = {name: [] for name in fns}
+    grids = {name: [] for name in fns}
+    for name in ("atomic", "fixed_order", "index_put", "index_put",
+                 "fixed_order", "atomic"):
+        g, sec = host_timed(lambda: fns[name](dev_pts, dom))
+        times[name].append(sec)
+        grids[name].append(g)
+    tol = (BRANCH_TOL["rtol"], BRANCH_TOL["atol_rel_to_max"]
+           * float(grids["atomic"][0].abs().max()))
+    scatter = {
+        **{f"{name}_s": t for name, t in times.items()},
+        "cost_share": (statistics.mean(times["fixed_order"])
+                       / statistics.mean(times["atomic"]) - 1.0),
+        "index_put_cost_share": (statistics.mean(times["index_put"])
+                                 / statistics.mean(times["atomic"]) - 1.0),
+        **{f"{name}_bit_identical": bool(torch.equal(*g))
+           for name, g in grids.items()},
+        "fixed_vs_atomic": compare(grids["fixed_order"][0],
+                                   grids["atomic"][0], *tol),
+        "index_put_vs_atomic": compare(grids["index_put"][0],
+                                       grids["atomic"][0], *tol),
+    }
+    del grids, dev_pts
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_journal_") as tmp:
+        j1, j2, j3 = (os.path.join(tmp, d) for d in ("j1", "j2", "j3"))
+        trace.reset()
+        first, first_s = host_timed(
+            lambda: stkde_chunked(pts, dom, chunk_size=chunk, journal=j1))
+        split = chunk_split()
+        snap_bytes = sorted(os.path.getsize(os.path.join(j1, f))
+                            for f in os.listdir(j1) if f.startswith("grid_"))
+        second, second_s = host_timed(
+            lambda: stkde_chunked(pts, dom, chunk_size=chunk))
+        part = stkde_chunked(pts, dom, chunk_size=chunk, journal=j2,
+                             max_chunks=2)
+        resumed = stkde_chunked(pts, dom, chunk_size=chunk, journal=j2,
+                                resume=True)
+        kill = sigkill_run(j3, chunk)
+        after_kill = stkde_chunked(pts, dom, chunk_size=chunk, journal=j3,
+                                   resume=True)
+    mono, mono_s = host_timed(lambda: stkde(pts, dom))
+    want = first.grid
+    atol = BRANCH_TOL["atol_rel_to_max"] * float(np.abs(want).max())
+    vs_mono = compare(torch.from_numpy(want), mono.cpu().double(),
+                      BRANCH_TOL["rtol"], atol)
+    pollen = {
+        "instance": inst.name, "n": len(pts), "grid": list(dom.grid_shape),
+        "chunk_size": chunk, "chunks": first.report["chunks_total"],
+        "accumulator_bytes": int(want.nbytes),
+        "snapshot_bytes": snap_bytes,
+        "uninterrupted_s": [first_s, second_s],
+        "monolithic_s": mono_s,
+        "per_chunk": split,
+        "two_runs_bit_identical": bool(np.array_equal(want, second.grid)),
+        "partial": {k: part.report[k] for k in ("coverage", "truncated",
+                                                 "chunks_computed")},
+        "partial_resume_bit_identical": bool(
+            np.array_equal(want, resumed.grid)),
+        "resume_report": {k: resumed.report[k] for k in (
+            "chunks_salvaged", "chunks_computed", "coverage")},
+        "sigkill": {**kill, **{k: after_kill.report[k] for k in (
+            "resumed", "chunks_salvaged", "chunks_computed")}},
+        "sigkill_resume_bit_identical": bool(
+            np.array_equal(want, after_kill.grid)),
+        "vs_monolithic": vs_mono,
+        "tolerance_vs_monolithic": {
+            "rtol": BRANCH_TOL["rtol"], "atol": atol,
+            "why": "float64 sum of five fp32 chunk grids against one fp32 "
+                   "sum of every point"},
+    }
+    ok = (pollen["two_runs_bit_identical"]
+          and pollen["partial_resume_bit_identical"]
+          and pollen["sigkill_resume_bit_identical"]
+          and kill["killed_while_running"] and kill["rc"] == -9
+          and not kill["printed_done"]
+          and after_kill.report["resumed"]
+          and after_kill.report["chunks_salvaged"] >= 1
+          and after_kill.report["chunks_computed"] >= 1
+          and resumed.report["chunks_salvaged"] == 2
+          and part.report["truncated"] and pollen["chunks"] == 5
+          and vs_mono["ok"] and want.dtype == np.float64
+          and scatter["fixed_order_bit_identical"]
+          and scatter["fixed_vs_atomic"]["ok"]
+          and scatter["index_put_vs_atomic"]["ok"])
+    del first, second, part, resumed, after_kill, mono
+
+    # eBird_Lr-Lb: the first three 1M-point chunks of the stream, no journal
+    big = get_instance("eBird_Lr-Lb")
+    bdom = big.domain()
+    trace.reset()
+    torch.cuda.reset_peak_memory_stats()
+    res, stream_s = host_timed(lambda: stkde_chunked(
+        stkde_stream(big, chunk=1_000_000), bdom, max_chunks=3))
+    rep = res.report
+    mass = float(res.grid.sum()) * bdom.sres ** 2 * bdom.tres
+    ebird = {
+        "instance": big.name, "n_total": rep["n_total"],
+        "grid": list(bdom.grid_shape), "grid_voxels": bdom.grid_voxels,
+        "chunk_grid_bytes_fp32": 4 * bdom.grid_voxels,
+        "accumulator_bytes": int(res.grid.nbytes),
+        "coverage": rep["coverage"], "chunks_computed": rep["chunks_computed"],
+        "truncated": rep["truncated"], "seconds": stream_s,
+        "per_chunk": chunk_split(),
+        "mass": mass, "finite": bool(np.isfinite(res.grid).all()),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "peak_host_rss_bytes": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024,
+    }
+    ok = (ok and rep["chunks_computed"] == 3 and rep["truncated"]
+          and rep["coverage"] == 3_000_000 / big.n and ebird["finite"]
+          and 0.0 < mass <= rep["coverage"] * 1.001
+          and res.grid.shape == bdom.grid_shape)
+    emit("chunked", scatter_accumulation=scatter, pollen=pollen,
+         ebird_stream=ebird)
+    if not ok:
+        fail("chunked: a check failed (see the chunked line)")
+    return {"scatter": scatter}
 
 
 def main() -> None:
@@ -576,7 +917,9 @@ def main() -> None:
     dev = phase_device()
     phase_build()
     kern = phase_kernels()
-    launches = phase_main_path(kern)
+    main = phase_main_path(kern)
+    launches = main["launches"] + phase_gold(main)
+    phase_chunked()
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "stkde_tile", "route": "cuda",

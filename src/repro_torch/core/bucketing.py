@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..obs import trace as obs_trace
 from .geometry import Domain
 
 
@@ -135,12 +136,16 @@ def bucket_points_home(
     """Each point assigned once, to the tile containing its voxel."""
     pts = np.asarray(pts, dtype=np.float32)
     nt = num_tiles(dom, tile)
-    vox = _point_voxels_np(pts, dom)
-    tx = vox[:, 0] // tile[0]
-    ty = vox[:, 1] // tile[1]
-    tt = vox[:, 2] // tile[2]
-    ids = (tx * nt[1] + ty) * nt[2] + tt
-    return _densify(ids, pts, nt, cap, len(pts), tile, "home")
+    with obs_trace.span("bucketing.home", n=len(pts),
+                        tiles=f"{nt[0]}x{nt[1]}x{nt[2]}") as sp:
+        vox = _point_voxels_np(pts, dom)
+        tx = vox[:, 0] // tile[0]
+        ty = vox[:, 1] // tile[1]
+        tt = vox[:, 2] // tile[2]
+        ids = (tx * nt[1] + ty) * nt[2] + tt
+        b = _densify(ids, pts, nt, cap, len(pts), tile, "home")
+        sp.set(cap=b.cap)
+        return b
 
 
 def bucket_points_overlap(
@@ -153,7 +158,11 @@ def bucket_points_overlap(
     pts = np.asarray(pts, dtype=np.float32)
     n = len(pts)
     nt = num_tiles(dom, tile)
-    return _bucket_overlap(pts, dom, tile, nt, cap, n)
+    with obs_trace.span("bucketing.overlap", n=n,
+                        tiles=f"{nt[0]}x{nt[1]}x{nt[2]}") as sp:
+        b = _bucket_overlap(pts, dom, tile, nt, cap, n)
+        sp.set(cap=b.cap, replication=round(b.replication_factor, 3))
+        return b
 
 
 def _bucket_overlap(pts, dom, tile, nt, cap, n) -> Buckets:

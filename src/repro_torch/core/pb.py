@@ -17,7 +17,9 @@ eager PyTorch really performs.
 This module is plain PyTorch on whatever device it is given; the hand-written
 path is ``repro_torch.kernels`` (the tile kernel). Both are cross-tested. On
 CUDA ``index_add_`` adds with atomics, so the order of each voxel's sum, and
-with it the last bits of the result, change from run to run.
+with it the last bits of the result, change from run to run; ``_pb_impl``'s
+``deterministic`` switch (taken by the chunked path) adds in a fixed order
+(``_add_in_order``).
 """
 from __future__ import annotations
 
@@ -121,24 +123,10 @@ def _block_size(dom: Domain, budget_elems: int) -> int:
     return max(1, min(4096, budget_elems // max(1, per_point)))
 
 
-def _pb_impl(
-    points: torch.Tensor,
-    dom: Domain,
-    variant: str,
-    ks,
-    kt,
-    budget_elems: int,
-    n_total: Optional[int] = None,
-) -> torch.Tensor:
+def _padded_blocks(points: torch.Tensor, dom: Domain, B: int):
+    """Points padded to whole blocks of ``B`` and their unclipped home
+    voxels, both ``(nblocks, B, 3)``."""
     n = points.shape[0]
-    n_norm = n if n_total is None else n_total
-    gsz = dom.grid_voxels
-    if gsz >= 2**30:
-        raise ValueError(
-            "scatter-path PB needs grid < 2^30 voxels; use the tiled kernel "
-            "or the distributed strategies for larger grids"
-        )
-    B = _block_size(dom, budget_elems)
     nblocks = -(-n // B)
     pad = nblocks * B - n
     pts = torch.nn.functional.pad(points.to(torch.float32), (0, 0, 0, pad))
@@ -149,15 +137,83 @@ def _pb_impl(
     # still contribute the in-domain part of their cylinder; fully
     # out-of-reach voxels land in the drop slot.
     vox = dom.point_voxels_unclipped(pts)
-    pts_b = pts.reshape(nblocks, B, 3)
-    vox_b = vox.reshape(nblocks, B, 3)
+    return pts.reshape(nblocks, B, 3), vox.reshape(nblocks, B, 3)
 
+
+def _add_in_order(grid: torch.Tensor, lin: torch.Tensor,
+                  vals: torch.Tensor) -> None:
+    """``grid[lin] += vals`` with each voxel's terms summed in one fixed
+    order, whatever the device: the indices are stable-sorted (as 32-bit
+    keys; every grid the scatter takes is below 2^30 voxels), each run of
+    equal indices is summed by ``segment_reduce``, and every voxel then gets
+    exactly one add, so atomics cannot reorder anything."""
+    keys, order = torch.sort(lin.to(torch.int32), stable=True)
+    voxels, counts = torch.unique_consecutive(keys, return_counts=True)
+    sums = torch.segment_reduce(vals[order], "sum", lengths=counts,
+                                unsafe=True)
+    grid.index_add_(0, voxels.to(torch.int64), sums)
+
+
+def _pb_impl(
+    points: torch.Tensor,
+    dom: Domain,
+    variant: str,
+    ks,
+    kt,
+    budget_elems: int,
+    n_total: Optional[int] = None,
+    deterministic: bool = False,
+) -> torch.Tensor:
+    """The blocked scatter. ``deterministic=True`` (taken by the chunked
+    path) makes a CUDA grid come out with the same bits on every run: each
+    block is added by ``_add_in_order`` in place of ``index_add_``, whose
+    atomics add in an order that changes from run to run. On the CPU
+    ``index_add_`` adds in order, so nothing changes there."""
+    n = points.shape[0]
+    n_norm = n if n_total is None else n_total
+    gsz = dom.grid_voxels
+    if gsz >= 2**30:
+        raise ValueError(
+            "scatter-path PB needs grid < 2^30 voxels; use the tiled kernel "
+            "or the distributed strategies for larger grids"
+        )
+    pts_b, vox_b = _padded_blocks(points, dom, _block_size(dom, budget_elems))
     grid = torch.zeros((gsz + 1,), dtype=torch.float32,
                        device=points.device)         # +1 slot absorbs drops
+    in_order = deterministic and grid.is_cuda
     for p, v in zip(pts_b, vox_b):
         lin, vals = _cylinder_values(p, v, dom, variant, ks, kt, n_norm)
-        grid.index_add_(0, lin.reshape(-1), vals.reshape(-1))
+        if in_order:
+            _add_in_order(grid, lin.reshape(-1), vals.reshape(-1))
+        else:
+            grid.index_add_(0, lin.reshape(-1), vals.reshape(-1))
     return grid[:gsz].reshape(dom.grid_shape)
+
+
+def _as_points(points, device: DeviceLike) -> torch.Tensor:
+    pts = torch.as_tensor(np.asarray(points, dtype=np.float32)
+                          if not isinstance(points, torch.Tensor) else points)
+    return pts.to(resolve_device(device))
+
+
+def pb_eval_only(points, dom: Domain, variant: str = "sym",
+                 ks: km.SpatialKernel = km.DEFAULT_KS,
+                 kt: km.TemporalKernel = km.DEFAULT_KT,
+                 budget_elems: int = 1 << 22,
+                 device: DeviceLike = None) -> torch.Tensor:
+    """Kernel-evaluation phase only (no scatter): the fp32 sum of every
+    cylinder value, block by block, as a 0-dim tensor on ``device``. Times
+    the compute phase the paper's Table 3 differentiates; the scatter is
+    variant-independent."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    pts = _as_points(points, device)
+    pts_b, vox_b = _padded_blocks(pts, dom, _block_size(dom, budget_elems))
+    acc = torch.zeros((), dtype=torch.float32, device=pts.device)
+    for p, v in zip(pts_b, vox_b):
+        _, vals = _cylinder_values(p, v, dom, variant, ks, kt, len(pts))
+        acc = acc + vals.sum()
+    return acc
 
 
 def pb(points, dom: Domain, variant: str = "sym",
@@ -174,12 +230,8 @@ def pb(points, dom: Domain, variant: str = "sym",
     """
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
-    pts = torch.as_tensor(np.asarray(points, dtype=np.float32)
-                          if not isinstance(points, torch.Tensor) else points)
-    return _pb_impl(
-        pts.to(resolve_device(device)), dom, variant, ks, kt, budget_elems,
-        n_total,
-    )
+    return _pb_impl(_as_points(points, device), dom, variant, ks, kt,
+                    budget_elems, n_total)
 
 
 def pb_sym(points, dom: Domain, **kw) -> torch.Tensor:

@@ -7,11 +7,13 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import metrics as obs_metrics
 from .errors import NonFiniteOutputError
 
 
 def ensure_finite(grid: torch.Tensor, tag: str = "stkde") -> torch.Tensor:
-    """Raise NonFiniteOutputError when the density has NaN/Inf cells.
+    """Raise NonFiniteOutputError when the density has NaN/Inf cells
+    (counted in ``resilience.nonfinite``).
 
     The test runs where the grid lives; only one boolean crosses to the
     host (which waits for the device to finish the grid).
@@ -19,6 +21,7 @@ def ensure_finite(grid: torch.Tensor, tag: str = "stkde") -> torch.Tensor:
     finite = torch.isfinite(grid)
     if not bool(finite.all()):
         bad = int(grid.numel() - int(finite.sum()))
+        obs_metrics.counter("resilience.nonfinite").inc()
         raise NonFiniteOutputError(
             f"{tag}: {bad}/{grid.numel()} non-finite cells in output grid"
         )

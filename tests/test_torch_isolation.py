@@ -5,6 +5,8 @@ import re
 import subprocess
 import sys
 
+import repro.core  # noqa: F401  (conftest's teardown imports repro.resilience,
+#                     which the reference can import only after repro.core)
 import repro_torch
 from repro_torch.core import kernels_math as km
 
@@ -36,7 +38,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
-    assert n >= 15, proc.stdout
+    assert n >= 28, proc.stdout
 
 
 def test_no_module_of_the_port_names_jax_or_the_reference():

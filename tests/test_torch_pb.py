@@ -10,7 +10,8 @@ from repro.core.pb import pb as ref_pb
 
 from repro_torch import convert
 from repro_torch.core import kernels_math as km
-from repro_torch.core.pb import VARIANTS, _block_size, pb, pb_sym
+from repro_torch.core.pb import (VARIANTS, _add_in_order, _block_size,
+                                  _pb_impl, pb, pb_sym)
 
 from test_torch_foundations import NONUNIT, TILE_CASES
 
@@ -95,3 +96,28 @@ def test_pb_rejects_unknown_variant_and_huge_grid():
         RefDomain(gx=1024, gy=1024, gt=1024, sres=1, tres=1, hs=1, ht=1))
     with pytest.raises(ValueError, match="2\\^30"):
         pb(pts, big, device="cpu")
+
+
+def test_add_in_order_is_index_add_with_one_add_per_voxel():
+    """The chunked path's fixed-order adds give what ``index_add_`` gives:
+    bit for bit on integer-valued terms (every order sums them exactly),
+    within rounding on real ones, the drop slot included."""
+    rng = np.random.default_rng(3)
+    lin = torch.from_numpy(rng.integers(0, 50, 20_000))
+    for vals in (torch.from_numpy(rng.integers(-9, 10, 20_000)).float(),
+                 torch.from_numpy(rng.random(20_000, np.float32))):
+        got = torch.zeros(51)
+        _add_in_order(got, lin, vals)
+        want = torch.zeros(51).index_add_(0, lin, vals)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-8)
+        if vals.eq(vals.round()).all():
+            assert torch.equal(got, want)
+
+
+def test_deterministic_scatter_changes_nothing_on_the_cpu():
+    ref, dom, pts = _case(0)
+    t = torch.from_numpy(pts)
+    args = (dom, "sym", km.DEFAULT_KS, km.DEFAULT_KT, 1 << 12)
+    assert torch.equal(_pb_impl(t, *args, deterministic=True),
+                       _pb_impl(t, *args))

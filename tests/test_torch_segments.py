@@ -7,6 +7,7 @@ each tile's ``[0, count)`` covered once and in order, slots consecutive per
 tile and in the order of its points, an empty tile written once.
 """
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -126,14 +127,17 @@ def test_plan_at_pollen_us_hr_lb_counts(monkeypatch):
     items no longer than seg, and every tile is still covered. The loads are
     the overlap bucketing's own, taken before it builds the capacity-padded
     layout (1.5 GB that the plan does not need)."""
-    monkeypatch.setattr(
-        bucketing, "_densify",
-        lambda ids, pts_rep, nt, *rest: np.bincount(
-            ids, minlength=int(np.prod(nt))))
+    def loads_only(ids, pts_rep, nt, *rest):
+        counts = np.bincount(ids, minlength=int(np.prod(nt)))
+        # what the bucketing span reads, beside the loads
+        return types.SimpleNamespace(counts=counts, cap=int(counts.max()),
+                                     replication_factor=0.0)
+
+    monkeypatch.setattr(bucketing, "_densify", loads_only)
     inst = get_instance("PollenUS_Hr-Lb")
     dom = inst.domain()
     counts = bucketing.bucket_points_overlap(inst.points(), dom,
-                                             ops.default_tile(dom))
+                                             ops.default_tile(dom)).counts
     assert counts.max() == 90_063 and counts.size == 1_260
     seg = choose_seg(int(counts.sum()), 132, 2)
     assert seg == 1920
