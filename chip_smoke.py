@@ -18,7 +18,13 @@ against ``vb`` (the paper's Algorithm 1) on the card at full-size
 at full-size ``PollenUS_Hr-Lb`` (two runs, a partial run resumed, a child
 process SIGKILLed mid-run and resumed: all bit for bit), times the
 scatter's fixed-order adds against its atomic ones, and streams the first
-chunks of ``eBird_Lr-Lb``.
+chunks of ``eBird_Lr-Lb``. Last, ``distributed`` runs the seven multi-device
+strategies on meshes of shards that all sit on this card ((2, 2) and
+(2, 2, 2)) at full-size ``PollenUS_Hr-Lb`` and ``Dengue_Lr-Hb``: each grid
+against the single-device query, its time split into prepare, shard compute
+and collectives, the halo bands of the ``collectives=False`` probes,
+chunked runs on a mesh (two runs and a resume, bit for bit) and the
+``dist.halo`` fallback to ``dr``.
 
 Every phase prints one JSON line. Any failure exits non-zero; without a CUDA
 device the script exits non-zero before it prints a result. The last line is
@@ -908,6 +914,257 @@ def phase_chunked() -> dict:
     return {"scatter": scatter}
 
 
+AXES2, AXES3 = ("data", "model"), ("pod", "data", "model")
+# strategy -> the mesh it runs on here: (2, 2) or (2, 2, 2), all on one card
+DIST_MESH = {"dr": 2, "dd": 2, "pd": 2, "pd_xt": 2, "dd_lpt": 2,
+             "hybrid": 3, "pd_xyt": 3}
+
+
+def mesh_fields(mesh) -> dict:
+    return {"shape": list(mesh.devices.shape), "axes": list(mesh.axis_names),
+            "devices": sorted({str(d) for d in mesh.devices.flat})}
+
+
+def strategy_builds(strategy: str, pts: np.ndarray, dom, mesh):
+    """``prepare_*`` of a strategy (host bucketing and the copy to the card)
+    and a function ``build(collectives, deterministic)`` that runs its
+    ``build_*`` on the prepared tensors. DD has no collectives, so no
+    probe: ``build(False, ...)`` is None there."""
+    from repro_torch.distributed import stkde_dist as sd
+
+    n = len(pts)
+    if strategy == "dr":
+        args = (sd.prepare_dr(pts, dom, mesh, AXES2),)
+        make = lambda c, d: sd.build_dr(dom, mesh, AXES2, n,  # noqa: E731
+                                        collectives=c, deterministic=d)
+    elif strategy == "dd":
+        args = sd.prepare_dd(pts, dom, mesh, AXES2)
+        make = lambda c, d: (sd.build_dd(  # noqa: E731
+            dom, mesh, AXES2, n, deterministic=d) if c else None)
+    elif strategy in ("pd", "pd_xt", "pd_xyt"):
+        prep, build = {"pd": (sd.prepare_pd, sd.build_pd),
+                       "pd_xt": (sd.prepare_pd_xt, sd.build_pd_xt),
+                       "pd_xyt": (sd.prepare_pd_xyt, sd.build_pd_xyt)}[
+                           strategy]
+        axes = AXES3 if strategy == "pd_xyt" else AXES2
+        args = prep(pts, dom, mesh, axes)
+        make = lambda c, d: build(dom, mesh, axes, n,  # noqa: E731
+                                  collectives=c, deterministic=d)
+    elif strategy == "hybrid":
+        args = sd.prepare_hybrid(pts, dom, mesh, AXES2, rep_axis="pod")
+        make = lambda c, d: sd.build_pd(  # noqa: E731
+            dom, mesh, AXES2, n, rep_axis="pod", collectives=c,
+            deterministic=d)
+    else:
+        args, ctx = sd.prepare_dd_lpt(pts, dom, mesh, AXES2)
+        make = lambda c, d: sd.build_dd_lpt(  # noqa: E731
+            dom, mesh, AXES2, n, ctx["tile"], ctx["k"], ctx["cap"],
+            ctx["ntiles"], collectives=c, deterministic=d)
+    return args, make
+
+
+def halo_split(strategy: str, dom, full: torch.Tensor,
+               probe: torch.Tensor) -> dict:
+    """The ``collectives=False`` probe against the full build: bit for bit
+    equal away from the halo bands (hybrid: the rep partials added in the
+    psum's order), and different inside them."""
+    Hs, Ht = dom.Hs, dom.Ht
+    if strategy == "hybrid":
+        asm = probe[0].clone()
+        for part in probe[1:]:
+            asm += part
+        probe = asm
+    interior = {
+        "pd": np.s_[:, :, Hs:-Hs, Hs:-Hs, :],
+        "pd_xt": np.s_[:, :, Hs:-Hs, :, Ht:-Ht],
+        "pd_xyt": np.s_[:, :, :, Hs:-Hs, Hs:-Hs, Ht:-Ht],
+        "hybrid": np.s_[:, :, Hs:-Hs, Hs:-Hs, :],
+    }[strategy]
+    same = bool(torch.equal(full[interior], probe[interior]))
+    differs = bool((full != probe).any())
+    return {"interior_bit_identical": same, "bands_differ": differs,
+            "cells_differing": int((full != probe).sum()),
+            "ok": same and differs and full.shape == probe.shape}
+
+
+def distributed_instance(inst, single: torch.Tensor) -> list:
+    """Each strategy at one full-size instance: the query through ``stkde``
+    twice (the second timed), its grid against the single-device query,
+    then the time split by running ``prepare_*`` and the full and probe
+    builds apart, and the halo-band check with fixed-order adds (atomics
+    would change the last bits between the two builds)."""
+    from repro_torch.core import stkde
+    from repro_torch.distributed import make_host_mesh
+
+    dom, pts = inst.domain(), inst.points()
+    meshes = {2: make_host_mesh(4, device="cuda:0"),
+              3: make_host_mesh(8, multi_pod=True, device="cuda:0")}
+    atol = BRANCH_TOL["atol_rel_to_max"] * float(single.abs().max())
+    rows = []
+    for strategy, which in DIST_MESH.items():
+        mesh = meshes[which]
+        kw = dict(mesh=mesh, strategy=strategy,
+                  rep_axis="pod" if which == 3 else None)
+        _, first_s = host_timed(lambda: stkde(pts, dom, **kw))
+        torch.cuda.reset_peak_memory_stats()
+        grid, query_s = host_timed(lambda: stkde(pts, dom, **kw))
+        peak = torch.cuda.max_memory_allocated()
+        vs_single = compare(grid, single, BRANCH_TOL["rtol"], atol)
+        del grid
+        args, prep_s = host_timed(
+            lambda: strategy_builds(strategy, pts, dom, mesh))
+        args, make = args
+        # full and probe builds in turns (full, probe, probe, full); dd has
+        # no communication, so no probe: its builds are all full
+        fns = {True: make(True, False), False: make(False, False)}
+        times = {True: [], False: []}
+        for collectives in (True, False, False, True):
+            fn = fns[collectives] or fns[True]
+            _, sec = host_timed(lambda: fn(*args))
+            times[collectives if fns[collectives] else True].append(sec)
+        full_s = statistics.mean(times[True])
+        probe_s = statistics.mean(times[False]) if times[False] else full_s
+        row = {"instance": inst.name, "strategy": strategy,
+               "mesh": mesh_fields(mesh), "query_s": query_s,
+               "first_call_s": first_s, "prepare_s": prep_s,
+               "full_build_s": full_s, "shard_compute_s": probe_s,
+               "collectives_s": full_s - probe_s,
+               "full_build_runs_s": times[True],
+               "probe_build_runs_s": times[False],
+               "peak_device_bytes": peak, "vs_single_device": vs_single}
+        ok = vs_single["ok"]
+        if strategy in ("pd", "pd_xt", "pd_xyt", "hybrid"):
+            full, probe = make(True, True)(*args), make(False, True)(*args)
+            row["halo_bands"] = halo_split(strategy, dom, full, probe)
+            ok = ok and row["halo_bands"]["ok"]
+            del full, probe
+        del args
+        row["ok"] = ok
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def chunked_on_mesh(inst, single: torch.Tensor, chunk: int) -> list:
+    """``stkde_chunked`` on a (2, 2) mesh with pd and dr: two runs, and a
+    ``max_chunks=2`` run resumed, all bit for bit; within the bar of the
+    single-device query."""
+    import os
+    import tempfile
+
+    from repro_torch.core import stkde_chunked
+    from repro_torch.distributed import make_host_mesh
+
+    dom, pts = inst.domain(), inst.points()
+    mesh = make_host_mesh(4, device="cuda:0")
+    want = single.cpu().double()
+    atol = BRANCH_TOL["atol_rel_to_max"] * float(want.abs().max())
+    rows = []
+    for strategy in ("pd", "dr"):
+        kw = dict(mesh=mesh, strategy=strategy, chunk_size=chunk)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            jdir = os.path.join(tmp, "j")
+            first, first_s = host_timed(lambda: stkde_chunked(pts, dom, **kw))
+            second, second_s = host_timed(
+                lambda: stkde_chunked(pts, dom, **kw))
+            part = stkde_chunked(pts, dom, journal=jdir, max_chunks=2, **kw)
+            resumed = stkde_chunked(pts, dom, journal=jdir, resume=True,
+                                    **kw)
+        row = {
+            "instance": inst.name, "strategy": strategy,
+            "mesh": mesh_fields(mesh), "chunk_size": chunk,
+            "chunks": first.report["chunks_total"],
+            "seconds": [first_s, second_s],
+            "two_runs_bit_identical": bool(np.array_equal(first.grid,
+                                                          second.grid)),
+            "partial_truncated": part.report["truncated"],
+            "resume_salvaged": resumed.report["chunks_salvaged"],
+            "partial_resume_bit_identical": bool(
+                np.array_equal(first.grid, resumed.grid)),
+            "final_mesh": resumed.report["final_mesh"],
+            "vs_single_device": compare(torch.from_numpy(first.grid), want,
+                                        BRANCH_TOL["rtol"], atol),
+        }
+        row["ok"] = (row["two_runs_bit_identical"] and row["chunks"] == 5
+                     and row["partial_truncated"]
+                     and row["resume_salvaged"] == 2
+                     and row["partial_resume_bit_identical"]
+                     and row["final_mesh"] == [2, 2]
+                     and row["vs_single_device"]["ok"])
+        rows.append(row)
+    return rows
+
+
+def halo_faults(inst, single: torch.Tensor) -> dict:
+    """``dist.halo`` faults (NaN poison, OOM at the build) reroute pd to dr
+    on the same mesh; the counters read as the reference's."""
+    from repro_torch.core import stkde
+    from repro_torch.distributed import make_host_mesh
+    from repro_torch.obs import metrics
+    from repro_torch.resilience import faults
+
+    dom, pts = inst.domain(), inst.points()
+    mesh = make_host_mesh(4, device="cuda:0")
+    atol = BRANCH_TOL["atol_rel_to_max"] * float(single.abs().max())
+    metrics.reset()
+    kinds = {}
+    try:
+        for kind in ("nan", "oom"):
+            faults.configure(f"dist.halo:{kind}:1.0", seed=0)
+            got = stkde(pts, dom, mesh=mesh, strategy="pd")
+            kinds[kind] = compare(got, single, BRANCH_TOL["rtol"], atol)
+    finally:
+        faults.configure("", 0)
+    c = metrics.export()["counters"]
+    counters = {k: c.get(k, 0) for k in ("resilience.fallbacks",
+                                         "resilience.fallbacks.stkde.pd")}
+    ok = (all(v["ok"] for v in kinds.values())
+          and counters == {"resilience.fallbacks": 2,
+                           "resilience.fallbacks.stkde.pd": 2})
+    return {"instance": inst.name, "mesh": mesh_fields(mesh),
+            "vs_single_device": kinds, "counters": counters, "ok": ok}
+
+
+def phase_distributed(dev: dict) -> int:
+    """The seven strategies of ``repro_torch.distributed`` on meshes of
+    shards that all sit on this card, at full-size ``PollenUS_Hr-Lb`` and
+    ``Dengue_Lr-Hb``; chunked runs on a mesh; the ``dist.halo`` fallback.
+    Returns the tile kernel's launches in this phase (the strategies run
+    the PB-SYM scatter and, for DD-LPT, an einsum: none)."""
+    from repro_torch.core import get_instance, stkde
+    from repro_torch.kernels import stkde_tile
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("distributed: TF32 matmuls are on; DD-LPT's einsum needs fp32")
+    stkde_tile.reset_launch_count()
+    rows, singles = [], {}
+    for name in ("PollenUS_Hr-Lb", "Dengue_Lr-Hb"):
+        inst = get_instance(name)
+        pts, dom = inst.points(), inst.domain()
+        stkde(pts, dom)
+        single, single_s = host_timed(lambda: stkde(pts, dom))
+        singles[name] = {"n": len(pts), "grid": list(dom.grid_shape),
+                         "single_device_query_s": single_s}
+        rows += distributed_instance(inst, single)
+        if name == "PollenUS_Hr-Lb":
+            chunked = chunked_on_mesh(inst, single, chunk=131072)
+        else:
+            fallback = halo_faults(inst, single)
+        del single
+    launches = stkde_tile.launch_count()
+    emit("distributed", nvidia_smi=dev["nvidia_smi"], instances=singles,
+         strategies=rows, chunked_on_mesh=chunked, halo_fallback=fallback,
+         tolerance={"rtol": BRANCH_TOL["rtol"],
+                    "atol_rel_to_max": BRANCH_TOL["atol_rel_to_max"],
+                    "why": "fp32 sums in another order: shards' partial "
+                           "grids, halo folds, the scatter's atomics"},
+         tile_kernel_launches=launches)
+    if not (all(r["ok"] for r in rows) and all(r["ok"] for r in chunked)
+            and fallback["ok"]):
+        fail("distributed: a check failed (see the distributed line)")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -920,6 +1177,7 @@ def main() -> None:
     main = phase_main_path(kern)
     launches = main["launches"] + phase_gold(main)
     phase_chunked()
+    launches += phase_distributed(dev)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "stkde_tile", "route": "cuda",

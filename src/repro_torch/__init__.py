@@ -5,8 +5,11 @@ The port of the ``repro`` package to PyTorch on NVIDIA Hopper. It imports
 ``repro``. The sub-packages mirror the reference's layout:
 
   core        geometry, kernel functions, datasets, bucketing, PB scatter,
-              VB / VB-DEC gold standards, api (one-shot and chunked)
+              VB / VB-DEC gold standards, coloring, api (one-shot and
+              chunked, one device or a mesh)
   kernels     the hand-written CUDA tile kernel, its plain version, its build script
+  distributed meshes of shards, their collectives, the seven multi-device
+              strategies, LPT placement
   data        point streams and chunking for the chunked path
   obs         spans, counters/gauges/histograms, the shared timer
   resilience  typed errors, fault injection, retry, the progress journal,

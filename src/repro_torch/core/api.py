@@ -4,24 +4,32 @@
     grid = stkde(points, dom)                          # PB-SYM scatter
     grid = stkde(points, dom, use_tiled_kernel=True)   # CUDA tile kernel
     grid = stkde(points, dom, device="cpu")            # plain versions, host
+    mesh = make_host_mesh(8)                           # (4, 2) shards, cuda
+    grid = stkde(points, dom, mesh=mesh, strategy="pd")
     res = stkde(points, dom, chunk_size=4096,          # crash-safe chunked run
                 journal="runs/j1")                     # -> ChunkedResult
     res = stkde(points, dom, resume="runs/j1")         # salvage + continue
     grid = np.asarray(res)                             # or res.grid
 
 Robustness contract: inputs are validated at this boundary (typed
-``ReproValidationError`` instead of downstream shape errors) and outputs are
-NaN/Inf-checked. ``device=None`` means ``"cuda"``; without a CUDA device that
-raises ``KernelUnavailableError`` — nothing carries on on the CPU unasked.
+``ReproValidationError`` instead of downstream shape errors), outputs are
+NaN/Inf-checked, and a failed distributed strategy build/execution falls
+back to the ``dr`` baseline on the same mesh (counted in
+``resilience.fallbacks``) unless ``fallback=False``. ``device=None`` means
+``"cuda"``; without a CUDA device that raises ``KernelUnavailableError`` —
+nothing carries on on the CPU unasked. On a mesh (``repro_torch.
+distributed.Mesh``) the mesh's devices decide where each shard runs.
 Chunked execution (``stkde_chunked``) journals per-chunk progress to disk
 so that a killed run resumes bit-identically; its journal is the reference
-package's, so either package resumes the other's. Meshes, strategies and
-fallback are not ported yet.
+package's, so either package resumes the other's. ``strategy="auto"`` on a
+mesh and re-planning after a device loss need the planner, which is not
+ported yet: the first raises a typed error, the second leaves the chunked
+call with its journal intact.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,7 +38,7 @@ from .. import obs
 from .._device import DeviceLike, resolve_device
 from ..resilience import faults as _faults
 from ..resilience.degrade import ensure_finite
-from ..resilience.errors import ReproValidationError
+from ..resilience.errors import ReproError, ReproValidationError
 from ..resilience.journal import ProgressJournal, fingerprint_of
 from ..resilience.retry import RetryPolicy, with_retry
 from .geometry import Domain
@@ -78,26 +86,56 @@ def validate_inputs(points, dom: Domain) -> np.ndarray:
     return pts
 
 
+def _mesh_strategy(strategy: str) -> str:
+    """The strategy to run on a mesh: one of ``STRATEGIES`` by name.
+    ``"auto"`` needs the planner, which is not ported yet."""
+    from ..distributed.stkde_dist import STRATEGIES
+
+    if strategy == "auto":
+        raise ReproValidationError(
+            "strategy='auto' on a mesh needs the planner, which the port "
+            f"does not have yet; name one of {sorted(STRATEGIES)}")
+    if strategy not in STRATEGIES:
+        raise ReproValidationError(
+            f"unknown strategy {strategy!r}; have {sorted(STRATEGIES)}")
+    return strategy
+
+
 def stkde(
     points,
     dom: Domain,
+    mesh=None,
+    strategy: str = "auto",
+    axes: Tuple[str, ...] = ("data", "model"),
+    rep_axis: Optional[str] = None,
     ks: km.SpatialKernel = km.DEFAULT_KS,
     kt: km.TemporalKernel = km.DEFAULT_KT,
     use_tiled_kernel: bool = False,
     validate: bool = True,
+    fallback: bool = True,
     chunk_size: Optional[int] = None,
     journal: Optional[str] = None,
     resume: Optional[str] = None,
     device: DeviceLike = None,
 ) -> Union[torch.Tensor, "ChunkedResult"]:
     """Space-time kernel density grid for ``points`` over ``dom``: a
-    ``float32`` tensor of shape ``dom.grid_shape`` on ``device``.
+    ``float32`` tensor of shape ``dom.grid_shape`` on ``device`` (on a mesh:
+    on the mesh's first device).
 
+    mesh:     a ``repro_torch.distributed.Mesh``; ``None`` is one device.
+    strategy: on a mesh, one of "dr" | "dd" | "pd" | "pd_xt" | "pd_xyt" |
+              "dd_lpt" | "hybrid" ("auto" raises ``ReproValidationError``
+              until the planner is ported); unused without a mesh.
+    axes / rep_axis: the mesh axes the strategy splits over; hybrid deals
+              each bucket over ``rep_axis`` (default ``"pod"``), and pd_xyt
+              given two ``axes`` takes the rep axis as its X cut.
     use_tiled_kernel: overlap-bucket the points on the host and run the
               tile kernel (the CUDA kernel on a CUDA device, its plain
               version on the CPU) instead of the PB-SYM scatter.
     validate: typed input validation at this boundary (see
               ``validate_inputs``).
+    fallback: on a mesh strategy's build/execution failure or non-finite
+              output, run the query again with ``dr`` on the same mesh.
     chunk_size / journal / resume: any of these switches to crash-safe
               chunked execution (``stkde_chunked``): bounded-memory chunk
               ingestion, per-chunk progress journaling to the ``journal``
@@ -106,27 +144,48 @@ def stkde(
               returns a ``ChunkedResult`` (array-like: ``np.asarray(res)``
               or ``res.grid`` is the float64 accumulator grid, on the host;
               ``.report`` carries coverage/recovery details).
-    device:   ``None`` means ``"cuda"``.
+    device:   ``None`` means ``"cuda"``; not used on a mesh.
     """
     if chunk_size is not None or journal is not None or resume is not None:
         return stkde_chunked(
-            points, dom, ks=ks, kt=kt, chunk_size=chunk_size,
+            points, dom, mesh=mesh, strategy=strategy, axes=axes,
+            rep_axis=rep_axis, ks=ks, kt=kt, chunk_size=chunk_size,
             journal=resume if resume is not None else journal,
             resume=resume is not None, validate=validate, device=device,
         )
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     if validate:
         pts = validate_inputs(points, dom)
     else:
         pts = np.asarray(points, dtype=np.float32)
-    if use_tiled_kernel:
-        from ..kernels import stkde_tiled
+    if mesh is None:
+        if use_tiled_kernel:
+            from ..kernels import stkde_tiled
 
+            return ensure_finite(
+                stkde_tiled(pts, dom, ks=ks, kt=kt, device=dev),
+                "stkde.tiled")
         return ensure_finite(
-            stkde_tiled(pts, dom, ks=ks, kt=kt, device=dev), "stkde.tiled")
-    return ensure_finite(
-        _pb(pts, dom, variant="sym", ks=ks, kt=kt, device=dev), "stkde.pb"
-    )
+            _pb(pts, dom, variant="sym", ks=ks, kt=kt, device=dev),
+            "stkde.pb"
+        )
+
+    from ..distributed.stkde_dist import STRATEGIES, strategy_kwargs
+
+    strategy = _mesh_strategy(strategy)
+    kw = dict(strategy_kwargs(strategy, axes, rep_axis), ks=ks, kt=kt)
+    try:
+        return ensure_finite(STRATEGIES[strategy](pts, dom, mesh, **kw),
+                             f"stkde.{strategy}")
+    except (ReproError, ValueError) as e:
+        if not fallback or strategy == "dr":
+            raise
+        obs.counter("resilience.fallbacks").inc()
+        obs.counter(f"resilience.fallbacks.stkde.{strategy}").inc()
+        with obs.span("resilience.fallback", frm=strategy, to="dr",
+                      error=type(e).__name__):
+            out = STRATEGIES["dr"](pts, dom, mesh, axes=axes, ks=ks, kt=kt)
+        return ensure_finite(out, "stkde.dr")
 
 
 # ------------------------------------------------------------------ chunked
@@ -175,7 +234,10 @@ def _chunk_fingerprint(dom: Domain, n_total: int, chunk_desc, strategy: str,
 def stkde_chunked(
     points,
     dom: Domain,
+    mesh=None,
     strategy: str = "auto",
+    axes: Tuple[str, ...] = ("data", "model"),
+    rep_axis: Optional[str] = None,
     ks: km.SpatialKernel = km.DEFAULT_KS,
     kt: km.TemporalKernel = km.DEFAULT_KT,
     chunk_size: Optional[int] = None,
@@ -204,11 +266,17 @@ def stkde_chunked(
 
     ``strategy`` is recorded in the journal's fingerprint as the reference
     records it; without a mesh every chunk runs locally (strategy
-    ``local``).
+    ``local``). On a ``mesh`` (``device`` is then not used) every chunk
+    runs ``strategy`` through
+    ``distributed.stkde_dist.execute_chunk`` (fixed-order adds there too),
+    and each journal record names the mesh's shape. A ``DeviceLostError``
+    from a chunk (the ``dist.device`` fault site) leaves this call with the
+    journal intact: re-planning onto a smaller mesh waits for the planner,
+    and a resume with the same mesh finishes the run bit-identically.
     """
     from ..data.pipeline import as_chunks
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     is_array = isinstance(points, (np.ndarray, list, tuple))
     if is_array:
         points = (validate_inputs(points, dom) if validate
@@ -229,7 +297,10 @@ def stkde_chunked(
     chunks, n_total = as_chunks(points, chunk_size, n_total)
     chunk_desc: Union[int, str] = chunk_size if is_array else "stream"
 
-    requested, strat = strategy, "local"
+    requested = strategy
+    strat = "local" if mesh is None else _mesh_strategy(strategy)
+    mesh_shape = (None if mesh is None
+                  else [int(mesh.shape[a]) for a in mesh.axis_names])
     fp = _chunk_fingerprint(dom, n_total, chunk_desc, requested, ks, kt)
     meta = {
         "n_total": int(n_total), "chunk_size": chunk_desc,
@@ -285,8 +356,15 @@ def stkde_chunked(
         def attempt(cpts=cpts, cid=cid):
             _faults.fault_point("stkde.chunk")
             with obs.span("chunk.device", chunk=cid):
-                g = _pb_impl(_as_points(cpts, dev), dom, "sym", ks, kt,
-                             1 << 22, n_total, deterministic=True)
+                if mesh is None:
+                    g = _pb_impl(_as_points(cpts, dev), dom, "sym", ks, kt,
+                                 1 << 22, n_total, deterministic=True)
+                else:
+                    from ..distributed.stkde_dist import execute_chunk
+
+                    g = execute_chunk(cpts, dom, mesh, strat, axes=axes,
+                                      rep_axis=rep_axis, ks=ks, kt=kt,
+                                      n_total=n_total)
                 # on the card; the one boolean it reads waits for the grid
                 g = ensure_finite(g, f"stkde.chunk.{cid}")
             with obs.span("chunk.d2h", chunk=cid, bytes=g.numel() * 4):
@@ -304,7 +382,7 @@ def stkde_chunked(
         if jnl is not None:
             with obs.span("chunk.journal", chunk=cid):
                 jnl.append_chunk(cid, start, stop, acc, strategy=strat,
-                                 mesh=None)
+                                 mesh=mesh_shape)
 
     report = {
         "n_total": int(n_total),
@@ -315,7 +393,7 @@ def stkde_chunked(
         "max_chunk_points": int(max_chunk_points),
         "strategy": requested,
         "final_strategy": strat,
-        "final_mesh": None,
+        "final_mesh": mesh_shape,
         "resumed": bool(salvage is not None),
         "truncated": bool(truncated),
         "recovery": recovery,

@@ -38,7 +38,27 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
-    assert n >= 28, proc.stdout
+    assert n >= 34, proc.stdout
+
+
+def test_distributed_modules_stand_alone():
+    """The mesh, collectives, strategies, placement and coloring modules are
+    imported with jax unimportable, and bring in neither jax nor the
+    reference."""
+    probe = _PROBE + r"""
+want = {"repro_torch.distributed", "repro_torch.distributed.mesh",
+        "repro_torch.distributed.collectives",
+        "repro_torch.distributed.stkde_dist",
+        "repro_torch.distributed.partition", "repro_torch.core.coloring"}
+print("MISSING", sorted(want - set(names)))
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True, text=True,
+        timeout=300, env={"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout and "MISSING []" in proc.stdout, \
+        proc.stdout
 
 
 def test_no_module_of_the_port_names_jax_or_the_reference():
