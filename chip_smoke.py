@@ -24,7 +24,12 @@ strategies on meshes of shards that all sit on this card ((2, 2) and
 against the single-device query, its time split into prepare, shard compute
 and collectives, the halo bands of the ``collectives=False`` probes,
 chunked runs on a mesh (two runs and a resume, bit for bit) and the
-``dist.halo`` fallback to ``dr``.
+``dist.halo`` fallback to ``dr``. ``planner`` measures the planner's three
+terms per strategy on those meshes (``obs.reconcile.run``), re-fits the H100
+record from them, lets ``strategy="auto"`` pick at both instances and
+loses devices in a chunked run on a mesh, which must shrink, re-plan and
+finish; ``degrade`` walks the degrade ladder with the tile kernel as the
+query and serves a partial answer from a journal.
 
 Every phase prints one JSON line. Any failure exits non-zero; without a CUDA
 device the script exits non-zero before it prints a result. The last line is
@@ -32,6 +37,7 @@ device the script exits non-zero before it prints a result. The last line is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -127,10 +133,9 @@ def cuda_ms(fn, warmup: int, runs: int):
 
 # ------------------------------------------------------------------ phases
 def phase_device() -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    from repro_torch.obs.reconcile import nvidia_smi
+
+    smi = nvidia_smi()
     dev = {"kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()}
     emit("device", **dev, nvidia_smi=smi, torch=torch.__version__,
@@ -1165,6 +1170,291 @@ def phase_distributed(dev: dict) -> int:
     return launches
 
 
+# ------------------------------------------------------------ planner
+RECONCILE_REPS = 2
+CHUNK = 131072   # points per chunk of the chunked runs at PollenUS_Hr-Lb
+# strategies a (2, 2) mesh can probe: pd_xyt and hybrid need a third axis
+TWO_D = ("dr", "dd", "pd", "pd_xt", "dd_lpt")
+
+
+def repredict(report: dict, mesh, dom, pts: np.ndarray, hw) -> dict:
+    """Each strategy of a reconcile report priced again under ``hw``, with
+    the same plan shape and loads that ``reconcile.run`` used."""
+    from repro_torch.core import bucketing, plan
+    from repro_torch.distributed import stkde_dist as sd
+    from repro_torch.obs import reconcile
+
+    wa, wb = mesh.axis_names[-2:]
+    gx, gy = sd._device_grid_dims(dom, mesh.shape[wa], mesh.shape[wb])
+    loads = bucketing.bucket_points_home(pts, dom, (gx, gy, dom.Gt)) \
+        .counts.reshape(-1).astype(np.float64)
+    out = {}
+    for s in dict.fromkeys(r["strategy"] for r in report["rows"]):
+        spec = reconcile.PROBED[s]
+        shape = spec.plan_shape(mesh, spec.default_axes(mesh))
+        out[s] = plan.estimate(dom, len(pts), shape, loads=loads, hw=hw)[s]
+    return out
+
+
+def planner_reconcile(inst) -> list:
+    """``reconcile.run`` on the card under ``H100_SEED``: every strategy on a
+    (2, 2, 2) mesh, the five 2-D ones on a (2, 2) mesh."""
+    from repro_torch.core import plan
+    from repro_torch.distributed import make_host_mesh
+    from repro_torch.obs import reconcile
+
+    dom, pts = inst.domain(), inst.points()
+    reports = []
+    for mesh, strategies in (
+            (make_host_mesh(8, multi_pod=True, device="cuda:0"), None),
+            (make_host_mesh(4, device="cuda:0"), TWO_D)):
+        rep = reconcile.run(pts, dom, mesh, strategies=strategies,
+                            reps=RECONCILE_REPS, hw=plan.H100_SEED)
+        reports.append({"instance": inst.name, **rep})
+        torch.cuda.empty_cache()
+    return reports
+
+
+def auto_query(inst, mesh, single: torch.Tensor) -> dict:
+    """``stkde(points, dom, mesh=mesh)`` with the default ``auto``: the
+    planner's pick and ranking, the query's seconds, and every candidate
+    strategy's query seconds in the same run; the grid against the
+    single-device query."""
+    from repro_torch.core import plan, stkde
+    from repro_torch.core.api import _auto_strategy, _home_loads, _plan_shape
+
+    dom, pts = inst.domain(), inst.points()
+    loads = _home_loads(pts, dom, mesh, AXES2)
+    pick = _auto_strategy(dom, len(pts), mesh, AXES2, None, loads, plan.H100)
+    _, table = plan.choose(dom, len(pts), _plan_shape(mesh, AXES2, None),
+                           loads, hw=plan.H100)
+    ranking = sorted((k for k, v in table.items() if v["feasible"] > 0),
+                     key=lambda k: table[k]["total_s"])
+    grid, auto_s = host_timed(lambda: stkde(pts, dom, mesh=mesh))
+    atol = BRANCH_TOL["atol_rel_to_max"] * float(single.abs().max())
+    vs_single = compare(grid, single, BRANCH_TOL["rtol"], atol)
+    del grid
+    measured = {}
+    for s in TWO_D:
+        _, measured[s] = host_timed(lambda: stkde(pts, dom, mesh=mesh,
+                                                  strategy=s))
+        torch.cuda.empty_cache()
+    fastest = sorted(measured, key=measured.get)
+    return {"instance": inst.name, "n": len(pts), "mesh": mesh_fields(mesh),
+            "pick": pick, "auto_query_s": auto_s,
+            "predicted_ranking": ranking,
+            "predicted_total_s": {k: table[k]["total_s"] for k in ranking},
+            "measured_query_s": measured, "measured_ranking": fastest,
+            "pick_in_measured_three_fastest": pick in fastest[:3],
+            "vs_single_device": vs_single, "ok": vs_single["ok"]}
+
+
+def recovering_chunked(inst, mesh, single: torch.Tensor) -> dict:
+    """``stkde_chunked`` on ``mesh`` with dr while ``dist.device`` loses a
+    device in 40% of the chunk calls (seed 3): the run shrinks the mesh,
+    re-plans and finishes."""
+    from repro_torch.core import stkde_chunked
+    from repro_torch.obs import metrics
+    from repro_torch.resilience import faults
+
+    dom, pts = inst.domain(), inst.points()
+    metrics.reset()
+    faults.configure("dist.device:oom:0.4", seed=3)
+    try:
+        res, sec = host_timed(lambda: stkde_chunked(
+            pts, dom, mesh=mesh, strategy="dr", chunk_size=CHUNK))
+    finally:
+        faults.configure("", 0)
+    rec = res.report["recovery"]
+    sizes = [int(np.prod(e["from_mesh"])) for e in rec]
+    want = single.cpu().double()
+    atol = BRANCH_TOL["atol_rel_to_max"] * float(want.abs().max())
+    vs_single = compare(torch.from_numpy(res.grid), want, BRANCH_TOL["rtol"],
+                        atol)
+    c = metrics.export()["counters"]
+    row = {"instance": inst.name, "mesh": mesh_fields(mesh),
+           "chunk_size": CHUNK, "faults": "dist.device:oom:0.4 seed 3",
+           "seconds": sec, "recovery": rec,
+           "final_mesh": res.report["final_mesh"],
+           "final_strategy": res.report["final_strategy"],
+           "coverage": res.report["coverage"],
+           "counters": {k: c.get(k, 0) for k in ("chunk.device_lost",
+                                                 "chunk.replans")},
+           "vs_single_device": vs_single}
+    row["ok"] = (bool(rec) and all(e["event"] == "device_lost" for e in rec)
+                 and rec[0]["from_mesh"] == [2, 2]
+                 and sizes == sorted(sizes, reverse=True)
+                 and len(set(sizes)) == len(sizes)
+                 and res.report["coverage"] == 1.0
+                 and row["counters"] == {"chunk.device_lost": len(rec),
+                                         "chunk.replans": len(rec)}
+                 and vs_single["ok"])
+    return row
+
+
+def phase_planner(dev: dict) -> int:
+    """The planner on the card: reconcile rows under ``H100_SEED`` at
+    full-size ``PollenUS_Hr-Lb`` on (2, 2, 2) and (2, 2); the re-fit against
+    the committed ``H100``; ``stkde`` with ``auto`` at ``PollenUS_Hr-Lb``
+    and ``Dengue_Lr-Hb``; a chunked run that loses devices. Returns the
+    tile kernel's launches in this phase (none: the strategies scatter)."""
+    from repro_torch.core import get_instance, plan, stkde
+    from repro_torch.distributed import make_host_mesh
+    from repro_torch.kernels import stkde_tile
+
+    t0 = time.perf_counter()
+    stkde_tile.reset_launch_count()
+    pollen = get_instance("PollenUS_Hr-Lb")
+    reports = planner_reconcile(pollen)
+    emit("planner_reconcile", reports=reports)
+    fit = plan.calibrate_host(reports[0]["rows"], base=plan.H100_SEED)
+    committed = plan.H100
+    ratio = {k: getattr(fit, k) / getattr(committed, k)
+             for k in ("peak_flops", "mxu_derate")}
+    fit_ok = all(0.5 < r < 2.0 for r in ratio.values())
+
+    dom, pts = pollen.domain(), pollen.points()
+    m3 = make_host_mesh(8, multi_pod=True, device="cuda:0")
+    m2 = make_host_mesh(4, device="cuda:0")
+    under_h100 = []
+    for rep, mesh in zip(reports, (m3, m2)):
+        pred = repredict(rep, mesh, dom, pts, committed)
+        measured = {(r["strategy"], r["term"]): r["measured_s"]
+                    for r in rep["rows"]}
+        under_h100.append({"mesh": rep["mesh"], "rows": [
+            {"strategy": s, "term": t, "predicted_s": pred[s][t],
+             "measured_s": measured[(s, t)],
+             "rel_err": (measured[(s, t)] - pred[s][t])
+             / max(abs(pred[s][t]), 1e-12)}
+            for s in pred for t in ("init_s", "compute_s", "comm_s",
+                                    "total_s")]})
+
+    autos, chunked = [], None
+    for name in ("PollenUS_Hr-Lb", "Dengue_Lr-Hb"):
+        inst = get_instance(name)
+        single = stkde(inst.points(), inst.domain())
+        autos.append(auto_query(inst, m2, single))
+        if name == "PollenUS_Hr-Lb":
+            chunked = recovering_chunked(inst, m2, single)
+        del single
+        torch.cuda.empty_cache()
+    launches = stkde_tile.launch_count()
+    seconds = time.perf_counter() - t0
+    emit("planner", nvidia_smi=dev["nvidia_smi"],
+         h100=dataclasses.asdict(committed),
+         refit_2x2x2=dataclasses.asdict(fit), refit_over_h100=ratio,
+         refit_within_2x=fit_ok, predicted_with_h100=under_h100,
+         auto=autos, chunked_device_loss=chunked,
+         tile_kernel_launches=launches, seconds=seconds)
+    if not (fit_ok and all(a["ok"] for a in autos) and chunked["ok"]):
+        fail("planner: a check failed (see the planner line)")
+    return launches
+
+
+# ------------------------------------------------------------ degrade
+def phase_degrade(dev: dict) -> int:
+    """The degrade ladder with the tile kernel as the query: full-size
+    ``Dengue_Lr-Hb`` clean (level 0) and after an injected OOM at level 0
+    (level 1: voxels twice as large, half the points), each level's grid
+    against the scatter of the same domain and points; then a partial
+    answer from the journal of a chunked run cut after 2 chunks. Returns
+    the tile kernel's launches in this phase."""
+    import os
+    import tempfile
+
+    from repro_torch.core import get_instance, stkde, stkde_chunked
+    from repro_torch.kernels import stkde_tile
+    from repro_torch.obs import metrics
+    from repro_torch.resilience import (DegradePolicy, run_with_degrade,
+                                        subsample_points)
+    from repro_torch.resilience.errors import InjectedOOMError
+    from repro_torch.serve import stkde_partial_answer
+
+    inst = get_instance("Dengue_Lr-Hb")
+    dom, pts = inst.domain(), inst.points()
+    policy = DegradePolicy()
+    calls = [0]
+
+    def tiled(p, d):
+        return stkde(p, d, use_tiled_kernel=True)
+
+    def oom_at_level_0(p, d):
+        calls[0] += 1
+        if calls[0] == 1:
+            raise InjectedOOMError("stkde")
+        return tiled(p, d)
+
+    metrics.reset()
+    stkde_tile.reset_launch_count()
+    clean, clean_s = host_timed(
+        lambda: run_with_degrade(tiled, pts, dom, policy))
+    degraded, degraded_s = host_timed(
+        lambda: run_with_degrade(oom_at_level_0, pts, dom, policy))
+    launches = stkde_tile.launch_count()
+    counters = metrics.export()["counters"]
+    levels = []
+    for res, p, sec in (
+            (clean, pts, clean_s),
+            (degraded, subsample_points(pts, policy.subsample,
+                                        seed=policy.seed + 1), degraded_s)):
+        want = stkde(p, res.dom)
+        atol = BRANCH_TOL["atol_rel_to_max"] * float(want.abs().max())
+        levels.append({
+            "level": res.level, "degraded": res.degraded,
+            "reason": res.reason, "error_bound": res.error_bound,
+            "n": len(p), "grid": list(res.dom.grid_shape),
+            "sres": res.dom.sres, "tres": res.dom.tres, "seconds": sec,
+            "shape_ok": tuple(res.grid.shape) == res.dom.grid_shape,
+            "vs_scatter": compare(res.grid, want, BRANCH_TOL["rtol"], atol)})
+    ladder_ok = (
+        levels[0]["level"] == 0 and not levels[0]["degraded"]
+        and levels[1]["level"] == 1 and levels[1]["degraded"]
+        and levels[1]["reason"] == "L0:InjectedOOMError"
+        and degraded.dom.sres == 2.0 * dom.sres
+        and all(lv["shape_ok"] and lv["vs_scatter"]["ok"] for lv in levels)
+        and counters.get("resilience.degraded", 0) == 1
+        and launches == 2)
+    del clean, degraded
+
+    pollen = get_instance("PollenUS_Hr-Lb")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_partial_") as tmp:
+        jdir = os.path.join(tmp, "j")
+        part, part_s = host_timed(lambda: stkde_chunked(
+            pollen.points(), pollen.domain(), chunk_size=CHUNK,
+            journal=jdir, max_chunks=2))
+        t0 = time.perf_counter()
+        ans = stkde_partial_answer(jdir, rescale=False)
+        answer_s = time.perf_counter() - t0
+        scaled = stkde_partial_answer(jdir)
+    partial = {
+        "instance": pollen.name, "chunk_size": CHUNK,
+        "chunks": ans.chunks, "coverage": ans.coverage,
+        "run_coverage": part.report["coverage"],
+        "chunked_run_s": part_s, "answer_s": answer_s,
+        "bit_identical_to_accumulator": bool(np.array_equal(ans.grid,
+                                                            part.grid)),
+        "rescaled_equals_accumulator_over_coverage": bool(
+            np.array_equal(scaled.grid, part.grid / ans.coverage)),
+    }
+    partial_ok = (partial["bit_identical_to_accumulator"]
+                  and partial["rescaled_equals_accumulator_over_coverage"]
+                  and ans.chunks == 2 and scaled.rescaled
+                  and not ans.rescaled
+                  and ans.coverage == part.report["coverage"]
+                  == 2 * CHUNK / pollen.n)
+    emit("degrade", nvidia_smi=dev["nvidia_smi"], instance=inst.name,
+         levels=levels, counters={k: counters.get(k, 0) for k in (
+             "resilience.degraded", "resilience.gave_up")},
+         tolerance={"rtol": BRANCH_TOL["rtol"],
+                    "atol_rel_to_max": BRANCH_TOL["atol_rel_to_max"],
+                    "why": "tile kernel against the scatter: the bar that "
+                           "holds the two branches of stkde"},
+         tile_kernel_launches=launches, partial_answer=partial)
+    if not (ladder_ok and partial_ok):
+        fail("degrade: a check failed (see the degrade line)")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1178,6 +1468,8 @@ def main() -> None:
     launches = main["launches"] + phase_gold(main)
     phase_chunked()
     launches += phase_distributed(dev)
+    launches += phase_planner(dev)
+    launches += phase_degrade(dev)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "stkde_tile", "route": "cuda",

@@ -5,15 +5,17 @@ The port of the ``repro`` package to PyTorch on NVIDIA Hopper. It imports
 ``repro``. The sub-packages mirror the reference's layout:
 
   core        geometry, kernel functions, datasets, bucketing, PB scatter,
-              VB / VB-DEC gold standards, coloring, api (one-shot and
-              chunked, one device or a mesh)
+              VB / VB-DEC gold standards, coloring, the strategy planner,
+              api (one-shot and chunked, one device or a mesh)
   kernels     the hand-written CUDA tile kernel, its plain version, its build script
   distributed meshes of shards, their collectives, the seven multi-device
               strategies, LPT placement
   data        point streams and chunking for the chunked path
-  obs         spans, counters/gauges/histograms, the shared timer
+  obs         spans, counters/gauges/histograms, the shared timer, the
+              planner's reconciliation
   resilience  typed errors, fault injection, retry, the progress journal,
-              the finite-output check
+              the finite-output check, the degrade ladder
+  serve       partial answers from a progress journal
   convert     state carried across from the reference (domain, bucket arrays)
 
 Entry points take ``device=None`` meaning ``"cuda"``; with no CUDA device

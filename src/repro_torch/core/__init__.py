@@ -3,7 +3,7 @@ from .geometry import Domain, from_points
 from . import kernels_math
 from .pb import pb, pb_sym, pb_eval_only, VARIANTS
 from .vb import vb, vb_dec
-from . import bucketing
+from . import bucketing, plan
 from .datasets import (
     STKDEInstance,
     INSTANCES,
@@ -28,6 +28,7 @@ __all__ = [
     "vb_dec",
     "VARIANTS",
     "bucketing",
+    "plan",
     "STKDEInstance",
     "INSTANCES",
     "get_instance",

@@ -19,16 +19,17 @@ back to the ``dr`` baseline on the same mesh (counted in
 ``"cuda"``; without a CUDA device that raises ``KernelUnavailableError`` —
 nothing carries on on the CPU unasked. On a mesh (``repro_torch.
 distributed.Mesh``) the mesh's devices decide where each shard runs.
-Chunked execution (``stkde_chunked``) journals per-chunk progress to disk
-so that a killed run resumes bit-identically; its journal is the reference
-package's, so either package resumes the other's. ``strategy="auto"`` on a
-mesh and re-planning after a device loss need the planner, which is not
-ported yet: the first raises a typed error, the second leaves the chunked
-call with its journal intact.
+``strategy="auto"`` on a mesh asks the parametric planner (``core.plan``)
+for the cheapest strategy. Chunked execution (``stkde_chunked``) journals
+per-chunk progress to disk so that a killed run resumes bit-identically
+(its journal is the reference package's, so either package resumes the
+other's), and survives a lost device by re-planning the remaining chunks
+onto a shrunken mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -38,11 +39,18 @@ from .. import obs
 from .._device import DeviceLike, resolve_device
 from ..resilience import faults as _faults
 from ..resilience.degrade import ensure_finite
-from ..resilience.errors import ReproError, ReproValidationError
+from ..resilience.errors import (
+    DeviceLostError,
+    ReproError,
+    ReproValidationError,
+    RetriesExhaustedError,
+)
 from ..resilience.journal import ProgressJournal, fingerprint_of
 from ..resilience.retry import RetryPolicy, with_retry
 from .geometry import Domain
+from . import bucketing
 from . import kernels_math as km
+from . import plan as _plan
 from .pb import _as_points, _pb_impl
 from .pb import pb as _pb
 
@@ -86,19 +94,40 @@ def validate_inputs(points, dom: Domain) -> np.ndarray:
     return pts
 
 
-def _mesh_strategy(strategy: str) -> str:
-    """The strategy to run on a mesh: one of ``STRATEGIES`` by name.
-    ``"auto"`` needs the planner, which is not ported yet."""
+def _check_strategy(strategy: str) -> str:
+    """``strategy`` if it is ``"auto"`` or one of ``STRATEGIES``."""
     from ..distributed.stkde_dist import STRATEGIES
 
-    if strategy == "auto":
+    if strategy != "auto" and strategy not in STRATEGIES:
         raise ReproValidationError(
-            "strategy='auto' on a mesh needs the planner, which the port "
-            f"does not have yet; name one of {sorted(STRATEGIES)}")
-    if strategy not in STRATEGIES:
-        raise ReproValidationError(
-            f"unknown strategy {strategy!r}; have {sorted(STRATEGIES)}")
+            f"unknown strategy {strategy!r}; have 'auto' or "
+            f"{sorted(STRATEGIES)}")
     return strategy
+
+
+def _plan_shape(mesh, axes, rep_axis) -> Tuple[int, ...]:
+    """The mesh shape the planner prices: (A, B), or (R, A, B) with a rep
+    axis."""
+    A, B = mesh.shape[axes[0]], mesh.shape[axes[1]]
+    return (mesh.shape[rep_axis], A, B) if rep_axis is not None else (A, B)
+
+
+def _home_loads(pts: np.ndarray, dom: Domain, mesh, axes) -> np.ndarray:
+    """Points per device block of the (A, B) worker grid (home buckets)."""
+    A, B = mesh.shape[axes[0]], mesh.shape[axes[1]]
+    tile = (math.ceil(dom.Gx / A), math.ceil(dom.Gy / B), dom.Gt)
+    return bucketing.bucket_points_home(pts, dom, tile).counts.reshape(-1)
+
+
+def _auto_strategy(dom: Domain, n: int, mesh, axes, rep_axis, loads,
+                   hw) -> str:
+    """The planner's pick on ``mesh``; hybrid and pd_xyt need a rep axis,
+    so without one they become pd."""
+    strat, _ = _plan.choose(dom, n, _plan_shape(mesh, axes, rep_axis),
+                            loads, hw=hw)
+    if strat in ("hybrid", "pd_xyt") and rep_axis is None:
+        strat = "pd"
+    return strat
 
 
 def stkde(
@@ -123,9 +152,10 @@ def stkde(
     on the mesh's first device).
 
     mesh:     a ``repro_torch.distributed.Mesh``; ``None`` is one device.
-    strategy: on a mesh, one of "dr" | "dd" | "pd" | "pd_xt" | "pd_xyt" |
-              "dd_lpt" | "hybrid" ("auto" raises ``ReproValidationError``
-              until the planner is ported); unused without a mesh.
+    strategy: on a mesh, "auto" (the planner's cheapest under
+              ``plan.H100``, from the points' home-bucket loads) or one of
+              "dr" | "dd" | "pd" | "pd_xt" | "pd_xyt" | "dd_lpt" |
+              "hybrid"; unused without a mesh.
     axes / rep_axis: the mesh axes the strategy splits over; hybrid deals
               each bucket over ``rep_axis`` (default ``"pod"``), and pd_xyt
               given two ``axes`` takes the rep axis as its X cut.
@@ -172,7 +202,10 @@ def stkde(
 
     from ..distributed.stkde_dist import STRATEGIES, strategy_kwargs
 
-    strategy = _mesh_strategy(strategy)
+    if _check_strategy(strategy) == "auto":
+        strategy = _auto_strategy(dom, len(pts), mesh, axes, rep_axis,
+                                  _home_loads(pts, dom, mesh, axes),
+                                  _plan.H100)
     kw = dict(strategy_kwargs(strategy, axes, rep_axis), ks=ks, kt=kt)
     try:
         return ensure_finite(STRATEGIES[strategy](pts, dom, mesh, **kw),
@@ -231,6 +264,28 @@ def _chunk_fingerprint(dom: Domain, n_total: int, chunk_desc, strategy: str,
     )
 
 
+def _mesh_shape(mesh) -> Optional[List[int]]:
+    return (None if mesh is None
+            else [int(mesh.shape[a]) for a in mesh.axis_names])
+
+
+def _replan_after_loss(dom: Domain, n_total: int, mesh, axes, rep_axis):
+    """Pick (mesh, strategy) for the chunks remaining after a device loss.
+
+    Shrinks the mesh by one device and re-runs the planner with the
+    hardware record of the mesh's device (``plan.default_hw``); when no
+    multi-device mesh survives, degrades to single-device local execution
+    (strategy ``local``).
+    """
+    from ..distributed.mesh import shrink_mesh
+
+    new_mesh = shrink_mesh(mesh, 1)
+    if new_mesh is None:
+        return None, "local"
+    return new_mesh, _auto_strategy(dom, n_total, new_mesh, axes, rep_axis,
+                                    None, _plan.default_hw(mesh.first_device))
+
+
 def stkde_chunked(
     points,
     dom: Domain,
@@ -267,12 +322,16 @@ def stkde_chunked(
     ``strategy`` is recorded in the journal's fingerprint as the reference
     records it; without a mesh every chunk runs locally (strategy
     ``local``). On a ``mesh`` (``device`` is then not used) every chunk
-    runs ``strategy`` through
-    ``distributed.stkde_dist.execute_chunk`` (fixed-order adds there too),
-    and each journal record names the mesh's shape. A ``DeviceLostError``
-    from a chunk (the ``dist.device`` fault site) leaves this call with the
-    journal intact: re-planning onto a smaller mesh waits for the planner,
-    and a resume with the same mesh finishes the run bit-identically.
+    runs ``strategy`` through ``distributed.stkde_dist.execute_chunk``
+    (fixed-order adds there too; ``"auto"`` asks ``plan.choose`` with
+    ``plan.default_hw`` of the mesh's first device), and each journal
+    record names the mesh's shape. A device failure (``DeviceLostError``
+    from the ``dist.device`` site, or a chunk whose retries exhaust)
+    re-plans the remaining chunks onto a shrunken mesh
+    (``distributed.mesh.shrink_mesh`` + ``plan.choose``), ultimately
+    running them ``local`` on the mesh's first device, and records a
+    ``device_lost`` event in ``report["recovery"]`` and in the journal
+    instead of raising.
     """
     from ..data.pipeline import as_chunks
 
@@ -298,9 +357,16 @@ def stkde_chunked(
     chunk_desc: Union[int, str] = chunk_size if is_array else "stream"
 
     requested = strategy
-    strat = "local" if mesh is None else _mesh_strategy(strategy)
-    mesh_shape = (None if mesh is None
-                  else [int(mesh.shape[a]) for a in mesh.axis_names])
+    if mesh is None:
+        strat = "local"
+    elif _check_strategy(strategy) == "auto":
+        # streams can't be pre-bucketed: the planner's default loads
+        loads = (_home_loads(points, dom, mesh, axes) if is_array
+                 else None)
+        strat = _auto_strategy(dom, n_total, mesh, axes, rep_axis, loads,
+                               _plan.default_hw(mesh.first_device))
+    else:
+        strat = strategy
     fp = _chunk_fingerprint(dom, n_total, chunk_desc, requested, ks, kt)
     meta = {
         "n_total": int(n_total), "chunk_size": chunk_desc,
@@ -324,6 +390,10 @@ def stkde_chunked(
         acc = np.zeros(dom.grid_shape, dtype=np.float64)
     salvaged_id = salvage.chunk_id if salvage is not None else -1
 
+    # after a device loss: the mesh left, its strategy; with no mesh left
+    # the chunks run locally on the card (or CPU) the mesh was on
+    mesh_now, strat_now = mesh, strat
+    local_dev = dev if mesh is None else mesh.first_device
     recovery: List[Dict[str, Any]] = []
     if salvage is not None:
         recovery.extend(salvage.events)
@@ -356,23 +426,45 @@ def stkde_chunked(
         def attempt(cpts=cpts, cid=cid):
             _faults.fault_point("stkde.chunk")
             with obs.span("chunk.device", chunk=cid):
-                if mesh is None:
-                    g = _pb_impl(_as_points(cpts, dev), dom, "sym", ks, kt,
-                                 1 << 22, n_total, deterministic=True)
+                if mesh_now is None:
+                    g = _pb_impl(_as_points(cpts, local_dev), dom, "sym", ks,
+                                 kt, 1 << 22, n_total, deterministic=True)
                 else:
                     from ..distributed.stkde_dist import execute_chunk
 
-                    g = execute_chunk(cpts, dom, mesh, strat, axes=axes,
-                                      rep_axis=rep_axis, ks=ks, kt=kt,
-                                      n_total=n_total)
+                    g = execute_chunk(cpts, dom, mesh_now, strat_now,
+                                      axes=axes, rep_axis=rep_axis, ks=ks,
+                                      kt=kt, n_total=n_total)
                 # on the card; the one boolean it reads waits for the grid
                 g = ensure_finite(g, f"stkde.chunk.{cid}")
             with obs.span("chunk.d2h", chunk=cid, bytes=g.numel() * 4):
                 return g.cpu().numpy()
 
         with obs.span("chunk.compute", chunk=cid, n=len(cpts),
-                      strategy=strat):
-            g = with_retry(attempt, policy=_CHUNK_POLICY, site="stkde.chunk")
+                      strategy=strat_now):
+            while True:
+                try:
+                    g = with_retry(attempt, policy=_CHUNK_POLICY,
+                                   site="stkde.chunk")
+                    break
+                except (DeviceLostError, RetriesExhaustedError) as e:
+                    if mesh_now is None:
+                        raise  # local execution has no mesh to shrink
+                    old_shape = _mesh_shape(mesh_now)
+                    mesh_now, strat_now = _replan_after_loss(
+                        dom, n_total, mesh_now, axes, rep_axis)
+                    event = {
+                        "event": "device_lost", "chunk_id": int(cid),
+                        "error": type(e).__name__,
+                        "from_mesh": old_shape,
+                        "to_mesh": _mesh_shape(mesh_now),
+                        "strategy": strat_now,
+                    }
+                    recovery.append(event)
+                    if jnl is not None:
+                        jnl.append_event(event)
+                    obs.counter("chunk.device_lost").inc()
+                    obs.counter("chunk.replans").inc()
         with obs.span("chunk.accumulate", chunk=cid):
             acc += g      # float32 -> float64 is exact: the reference's adds
         computed += 1
@@ -381,8 +473,8 @@ def stkde_chunked(
         obs.histogram("chunk.points").observe(len(cpts))
         if jnl is not None:
             with obs.span("chunk.journal", chunk=cid):
-                jnl.append_chunk(cid, start, stop, acc, strategy=strat,
-                                 mesh=mesh_shape)
+                jnl.append_chunk(cid, start, stop, acc, strategy=strat_now,
+                                 mesh=_mesh_shape(mesh_now))
 
     report = {
         "n_total": int(n_total),
@@ -392,8 +484,8 @@ def stkde_chunked(
         "coverage": float(done_stop / n_total) if n_total else 0.0,
         "max_chunk_points": int(max_chunk_points),
         "strategy": requested,
-        "final_strategy": strat,
-        "final_mesh": mesh_shape,
+        "final_strategy": strat_now,
+        "final_mesh": _mesh_shape(mesh_now),
         "resumed": bool(salvage is not None),
         "truncated": bool(truncated),
         "recovery": recovery,

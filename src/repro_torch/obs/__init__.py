@@ -4,12 +4,14 @@
              mirrored into ``torch.profiler.record_function`` ranges)
   metrics    process-global counters / gauges / log-scale histograms
   timing     the one benchmark timer (warmup + waiting for the card)
+  reconcile  the planner's predicted terms joined with measured ones, per
+             strategy (``run``); the rows ``plan.calibrate_host`` fits
 
 ``trace`` and ``metrics`` are stdlib-only, so any layer of the port can
-import them without cycles. The planner reconciliation of the reference
-(``reconcile``) is not ported yet.
+import them without cycles; ``reconcile`` imports the planner and the
+strategies only when it runs.
 """
-from . import metrics, timing, trace
+from . import metrics, reconcile, timing, trace
 from .metrics import counter, gauge, histogram
 from .timing import timeit
 from .trace import span
@@ -18,6 +20,7 @@ __all__ = [
     "trace",
     "metrics",
     "timing",
+    "reconcile",
     "span",
     "timeit",
     "counter",

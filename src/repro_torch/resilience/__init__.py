@@ -7,13 +7,22 @@ journal, typed errors and the finite-output check.
   retry    ``with_retry`` — exponential backoff + jitter + deadline
   journal  durable progress journal for crash-safe resumable STKDE
            (byte-compatible with the reference package's)
-  degrade  ``ensure_finite`` (the rest of graceful degradation is not ported yet)
+  degrade  graceful degradation: ``run_with_degrade`` walks coarser grids
+           and point subsets on failure; ``ensure_finite``
 
 ``faults``/``retry``/``errors`` depend only on the stdlib and ``obs``
 (itself stdlib-only); ``journal`` adds numpy and ``degrade`` torch.
 """
 from . import degrade, errors, faults, journal, retry
-from .degrade import ensure_finite
+from .degrade import (
+    DegradedResult,
+    DegradePolicy,
+    coarsen_domain,
+    ensure_finite,
+    error_bound,
+    run_with_degrade,
+    subsample_points,
+)
 from .errors import (
     AdmissionError,
     CheckpointCorruptError,
@@ -39,6 +48,12 @@ __all__ = [
     "journal",
     "retry",
     "ensure_finite",
+    "DegradePolicy",
+    "DegradedResult",
+    "coarsen_domain",
+    "subsample_points",
+    "error_bound",
+    "run_with_degrade",
     "ProgressJournal",
     "Salvage",
     "fingerprint_of",

@@ -2,13 +2,13 @@
 collectives, the mesh branch of ``stkde`` / ``stkde_chunked`` (fallback,
 chaos, chunked runs on a mesh and their resume).
 
-Counterparts of every case of ``tests/test_stkde_distributed.py`` except
-``test_auto_api_on_mesh`` (the planner is not ported: ``strategy="auto"`` on
-a mesh raises here), of the two distributed cases of
-``tests/test_resilience.py`` and of the mesh cases of
-``tests/test_journal.py``. The reference runs once for the whole file, in
-one subprocess with 8 fake XLA devices, and leaves its grids in an ``.npz``;
-the port runs in this process on meshes of CPU shards.
+Counterparts of every case of ``tests/test_stkde_distributed.py``, of the
+two distributed cases of ``tests/test_resilience.py`` and of the mesh cases
+of ``tests/test_journal.py`` (the mesh-shrink recovery among them). The
+reference runs once for the whole file, in one subprocess with 8 fake XLA
+devices, and leaves its grids in an ``.npz``; the port runs in this process
+on meshes of CPU shards. On CPU meshes both packages plan with the same
+``HOST`` record, so their choices and recovery events are equal.
 """
 import textwrap
 
@@ -33,11 +33,11 @@ from repro_torch.distributed.collectives import ppermute, psum
 from repro_torch.obs import metrics, trace
 from repro_torch.resilience import faults
 from repro_torch.resilience.errors import (
-    DeviceLostError,
     KernelUnavailableError,
     ReproValidationError,
+    RetriesExhaustedError,
 )
-from repro_torch.resilience.journal import ProgressJournal, iter_records
+from repro_torch.resilience.journal import iter_records
 
 CROSS_TOL = dict(rtol=1e-5, atol=1e-8)   # port vs reference
 PB_ATOL = 5e-7                           # strategy vs single-device pb
@@ -62,6 +62,8 @@ DOMS = {
                         ht=1.), 400, 4),
     "journal": (dict(gx=32., gy=28., gt=12., sres=1., tres=1., hs=3.,
                      ht=2.), 600, 11),
+    "auto": (dict(gx=48., gy=32., gt=16., sres=1., tres=1., hs=3., ht=2.),
+             900, 2),
 }
 SWEEP_SHAPES = [(1, 8), (8, 1), (2, 4)]
 AXES2, AXES3 = ("data", "model"), ("pod", "data", "model")
@@ -192,6 +194,23 @@ REFERENCE = textwrap.dedent(
     out["journal/dr"] = res.grid
     info["journal_report"] = {{k: res.report[k] for k in (
         "chunks_total", "final_mesh", "final_strategy")}}
+
+    # strategy="auto" on a mesh: the query, and a chunked run
+    dom, pts = case("auto")
+    out["auto"] = np.asarray(stkde(pts, dom, mesh=m2, strategy="auto"))
+    res = stkde_chunked(pts, dom, mesh=make_host_mesh(8), chunk_size=300)
+    out["auto/chunked"] = res.grid
+    info["auto_chunked_strategy"] = res.report["final_strategy"]
+
+    # a device lost in 40% of the chunk calls: shrink, re-plan, finish
+    dom, pts = case("journal")
+    faults.configure("dist.device:oom:0.4", seed=3)
+    res = stkde_chunked(pts, dom, mesh=make_host_mesh(8), strategy="dr",
+                        chunk_size=100)
+    faults.configure("", 0)
+    out["shrink/dr"] = res.grid
+    info["shrink_report"] = {{k: res.report[k] for k in (
+        "recovery", "final_mesh", "final_strategy", "coverage")}}
 
     shrinks = {{}}
     for tag, m in (("host", make_host_mesh(8)), ("pod", m3)):
@@ -509,16 +528,41 @@ def test_api_runs_each_strategy_on_a_mesh(ref, strategy):
            strategy)
 
 
+def test_auto_api_on_mesh(ref):
+    """``strategy="auto"`` (also the default) on a mesh: the planner's pick
+    gives the single-device grid and the reference's."""
+    grids, _ = ref
+    dom, pts = _case("auto")
+    want = pb(pts, dom, device=CPU).numpy()
+    _check(stkde(pts, dom, mesh=_host(), strategy="auto"), want,
+           grids["auto"], "auto")
+    _check(stkde(pts, dom, mesh=_host()), want, grids["auto"], "default")
+
+
+def test_auto_chunked_on_mesh_plans_as_the_reference(ref):
+    """``stkde_chunked`` with ``auto`` on a CPU mesh prices with ``HOST``
+    from the chunk's home-bucket loads and picks the reference's
+    strategy."""
+    grids, info = ref
+    dom, pts = _case("auto")
+    res = stkde_chunked(pts, dom, mesh=_host(), chunk_size=300)
+    assert res.report["final_strategy"] == info["auto_chunked_strategy"]
+    assert res.report["strategy"] == "auto"
+    np.testing.assert_allclose(res.grid, grids["auto/chunked"], **CROSS_TOL)
+    mono = pb(pts, dom, device=CPU).numpy().astype(np.float64)
+    assert np.allclose(res.grid, mono, rtol=1e-4, atol=1e-6)
+
+
 def test_auto_strategy_on_a_mesh_raises():
+    """On a mesh only an unknown strategy name raises now; ``"auto"`` asks
+    the planner (``test_auto_api_on_mesh``)."""
     dom, pts = _case("all")
-    for call in (lambda: stkde(pts, dom, mesh=_host()),
-                 lambda: stkde(pts, dom, mesh=_host(), strategy="auto"),
+    for call in (lambda: stkde(pts, dom, mesh=_host(), strategy="pb"),
                  lambda: stkde_chunked(pts, dom, mesh=_host(),
-                                       chunk_size=500)):
-        with pytest.raises(ReproValidationError, match="planner"):
+                                       strategy="pb", chunk_size=500)):
+        with pytest.raises(ReproValidationError,
+                           match="unknown strategy 'pb'; have 'auto'"):
             call()
-    with pytest.raises(ReproValidationError, match="unknown strategy"):
-        stkde(pts, dom, mesh=_host(), strategy="pb")
 
 
 def test_distributed_fallback_to_dr(ref):
@@ -590,27 +634,87 @@ def test_chunked_on_mesh_resume_bit_identical(tmp_path, strategy):
     assert all(r["strategy"] == strategy for r in chunks)
 
 
+def test_mesh_shrink_recovery_8dev(ref):
+    """``dist.device`` loses a device in 40% of the chunk calls (seed 3):
+    the run shrinks the mesh, re-plans with ``HOST`` and finishes, with the
+    reference's recovery events, down to running ``local``."""
+    grids, info = ref
+    dom, pts = _case("journal")
+    faults.configure("dist.device:oom:0.4", seed=3)
+    res = stkde_chunked(pts, dom, mesh=_host(), strategy="dr",
+                        chunk_size=100)
+    faults.configure("", 0)
+    mono = pb(pts, dom, device=CPU).numpy().astype(np.float64)
+    assert np.allclose(res.grid, mono, rtol=1e-4, atol=1e-6), \
+        np.abs(res.grid - mono).max()
+    np.testing.assert_allclose(res.grid, grids["shrink/dr"], **CROSS_TOL)
+    rec = res.report["recovery"]
+    assert rec, "expected device-loss recovery events"
+    assert all(e["event"] == "device_lost" for e in rec)
+    meshes = [tuple(e["from_mesh"]) for e in rec]
+    assert meshes[0] == (4, 2)
+    sizes = [int(np.prod(m)) for m in meshes]
+    assert sizes == sorted(sizes, reverse=True), meshes  # monotone shrink
+    assert res.report["coverage"] == 1.0
+    assert {k: res.report[k] for k in info["shrink_report"]} == \
+        info["shrink_report"]
+    c = metrics.export()["counters"]
+    assert c["chunk.device_lost"] == c["chunk.replans"] == len(rec)
+
+
 def test_device_loss_leaves_journal_intact_and_resume_matches(tmp_path):
-    """``dist.device`` raises ``DeviceLostError`` out of the chunked call
-    (re-planning waits for the planner); the chunks that landed stay in the
-    journal, and a resume on the same mesh is bit-identical to a clean
-    run."""
+    """A journaled run that loses devices and stops after 4 chunks keeps its
+    chunks and its ``device_lost`` events in the journal; a resume on the
+    first mesh salvages the chunks, reports the events and finishes within
+    the bar of the single-device grid."""
     dom, pts = _case("journal")
     kw = dict(mesh=_host(), strategy="dr", chunk_size=100)
-    clean = stkde_chunked(pts, dom, **kw).grid
     jdir = str(tmp_path / "j")
-    inj = faults.configure("dist.device:oom:0.4", seed=3)
-    with pytest.raises(DeviceLostError) as e:
-        stkde_chunked(pts, dom, journal=jdir, **kw)
-    assert e.value.mesh_shape == (4, 2)
-    landed = inj._counts["dist.device"] - 1
+    faults.configure("dist.device:oom:0.4", seed=3)
+    part = stkde_chunked(pts, dom, journal=jdir, max_chunks=4, **kw)
     faults.configure("", 0)
-    salvage = ProgressJournal(jdir).replay()
-    assert salvage.chunk_id == landed - 1 and salvage.dropped_tail == 0
+    lost = part.report["recovery"]
+    assert part.report["truncated"] and lost
+    events = [r for r in iter_records(jdir) if r["kind"] == "event"]
+    assert [{k: e[k] for k in lost[0]} for e in events] == lost
+    chunks = [r for r in iter_records(jdir) if r["kind"] == "chunk"]
+    assert chunks[-1]["mesh"] == lost[-1]["to_mesh"]
     res = stkde_chunked(pts, dom, journal=jdir, resume=True, **kw)
-    assert res.report["chunks_salvaged"] == landed
+    assert res.report["chunks_salvaged"] == 4
     assert res.report["coverage"] == 1.0
-    assert np.array_equal(res.grid, clean)
+    assert [{k: e[k] for k in lost[0]} for e in res.report["recovery"]] \
+        == lost
+    mono = pb(pts, dom, device=CPU).numpy().astype(np.float64)
+    assert np.allclose(res.grid, mono, rtol=1e-4, atol=1e-6)
+
+
+def test_device_loss_with_no_mesh_left_runs_local_on_the_mesh_device(
+        monkeypatch):
+    """When no mesh survives, the remaining chunks run ``local`` on the
+    device the mesh was on, with fixed-order adds; a loss there raises."""
+    import repro_torch.core.api as api
+
+    seen = []
+    real = api._pb_impl
+
+    def spy(points, *args, **kw):
+        seen.append((points.device, kw.get("deterministic")))
+        return real(points, *args, **kw)
+
+    monkeypatch.setattr(api, "_pb_impl", spy)
+    dom, pts = _case("journal")
+    faults.configure("dist.device:oom:1.0", seed=0)
+    res = stkde_chunked(pts, dom, mesh=_mesh((2, 1)), strategy="dr",
+                        chunk_size=300)
+    assert [e["to_mesh"] for e in res.report["recovery"]] == [None]
+    assert res.report["final_strategy"] == "local"
+    assert seen == [(torch.device(CPU), True)] * 2
+    mono = pb(pts, dom, device=CPU).numpy().astype(np.float64)
+    assert np.allclose(res.grid, mono, rtol=1e-4, atol=1e-6)
+    faults.configure("stkde.chunk:oom:1.0", seed=0)
+    with pytest.raises(RetriesExhaustedError):
+        stkde_chunked(pts, dom, mesh=_mesh((2, 1)), strategy="dr",
+                      chunk_size=300)
 
 
 def test_execute_chunk_asks_for_fixed_order_adds(monkeypatch):

@@ -3,9 +3,11 @@ single-device cases of ``tests/test_journal.py``) and the journal's
 cross-package contract — one fingerprint, one wire format, and a journal
 left partial by either package resumed by the other.
 
-Left out here, each with the queue item it waits for: the mesh-shrink and
-device-loss cases (multi-device strategies), the calibrated host planner
-(planner) and the serve partial answer (degrade + partial answers)."""
+Here too: the serve partial answer (from either package's journal) and the
+H100 planner record fitted from the committed reconcile rows (the
+counterpart of the reference's calibrated host record). The mesh-shrink and
+device-loss cases are in ``tests/test_torch_distributed.py``."""
+import json
 import os
 import pathlib
 import subprocess
@@ -41,6 +43,7 @@ from repro_torch.data.pipeline import stkde_stream
 from repro_torch.obs import metrics, trace
 from repro_torch.resilience import ReproValidationError, faults
 from repro_torch.resilience.errors import KernelUnavailableError
+from repro_torch.serve import stkde_partial_answer
 from repro_torch.resilience.journal import (
     MAGIC,
     ProgressJournal,
@@ -48,7 +51,8 @@ from repro_torch.resilience.journal import (
     iter_records,
 )
 
-SRC = str(pathlib.Path(__file__).resolve().parent.parent / "src")
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SRC = str(ROOT / "src")
 REF_DOM = RefDomain(gx=32.0, gy=28.0, gt=12.0, sres=1.0, tres=1.0, hs=3.0,
                     ht=2.0)
 DOM = convert.domain_from_reference(REF_DOM)
@@ -410,3 +414,92 @@ def test_chunked_path_asks_for_fixed_order_adds(monkeypatch):
     monkeypatch.setattr(api, "_pb_impl", spy)
     _chunked(_pts(), chunk_size=128)
     assert seen == [True] * 4
+
+
+# --------------------------------------------------- serve partial answer
+def test_serve_partial_answer(tmp_path):
+    pts = _pts()
+    jdir = str(tmp_path / "j")
+    part = _chunked(pts, chunk_size=128, journal=jdir, max_chunks=3)
+    ans = stkde_partial_answer(jdir, rescale=False)
+    assert ans.coverage == pytest.approx(3 * 128 / 500)
+    assert ans.chunks == 3 and ans.n_total == 500
+    assert np.array_equal(ans.grid, part.grid)
+    scaled = stkde_partial_answer(jdir, rescale=True)
+    assert scaled.rescaled
+    assert np.allclose(scaled.grid, part.grid / ans.coverage)
+    with pytest.raises(ReproValidationError):
+        stkde_partial_answer(str(tmp_path / "empty"))
+    assert metrics.export()["counters"]["serve.partial_answers"] == 2
+    assert len(trace.get_tracer().spans("serve.partial_answer")) == 2
+
+
+def test_partial_answer_from_a_reference_journal(tmp_path):
+    """A journal the reference left after 3 chunks: the port's partial
+    answer is the reference's, bit for bit, rescaled or not."""
+    from repro.serve.engine import stkde_partial_answer as ref_answer
+
+    jdir = str(tmp_path / "j")
+    part = ref_stkde_chunked(_pts(), REF_DOM, chunk_size=128, journal=jdir,
+                             max_chunks=3)
+    for rescale in (False, True):
+        got, want = stkde_partial_answer(jdir, rescale), ref_answer(
+            jdir, rescale)
+        assert np.array_equal(got.grid, want.grid), rescale
+        assert (got.coverage, got.chunks, got.n_total, got.rescaled) == (
+            want.coverage, want.chunks, want.n_total, want.rescaled)
+        assert got.journal_path == want.journal_path == jdir
+    assert np.array_equal(stkde_partial_answer(jdir, False).grid, part.grid)
+
+
+# --------------------------------------------------- H100 calibration
+def test_h100_model_calibrated_against_committed_reconcile():
+    """``plan.H100`` is fitted from results/torch/reconcile_h100.json: the
+    card's name and power limit are there, every probed strategy has a
+    compute row within 5x of ``H100``'s prediction on both meshes, and a
+    re-fit from the whole file lands within 2x of the record."""
+    from repro_torch.core import bucketing, get_instance, plan
+    from repro_torch.distributed import make_host_mesh
+    from repro_torch.distributed.stkde_dist import _device_grid_dims
+    from repro_torch.obs import reconcile
+
+    path = ROOT / "results" / "torch" / "reconcile_h100.json"
+    assert path == plan.H100_ROWS
+    reports = json.load(open(path))
+    assert [r["mesh"] for r in reports] == ["2x2x2", "2x2"]
+    inst = get_instance("PollenUS_Hr-Lb")
+    dom, pts = inst.domain(), inst.points()
+    for rep in reports:
+        name, limit = rep["nvidia_smi"].split(", ")
+        assert name.startswith("NVIDIA H100") and limit.endswith(" W")
+        assert float(limit[:-2]) > 0
+        assert rep["hw"] == "h100_seed" and rep["instance"] == inst.name
+        assert (rep["n"], rep["grid"]) == (inst.n, "651x301x84")
+    # H100 is the fit of the (2, 2, 2) report, from the card's peaks
+    assert plan.H100 == plan.calibrate_host(reports[0]["rows"],
+                                            base=plan.H100_SEED)
+    assert not hasattr(plan, "V5E")
+    meshes = {"2x2x2": make_host_mesh(8, multi_pod=True, device="cpu"),
+              "2x2": make_host_mesh(4, device="cpu")}
+    for rep in reports:
+        mesh = meshes[rep["mesh"]]
+        gx, gy = _device_grid_dims(dom, *[mesh.shape[a]
+                                          for a in mesh.axis_names[-2:]])
+        loads = bucketing.bucket_points_home(pts, dom, (gx, gy, dom.Gt)) \
+            .counts.reshape(-1).astype(np.float64)
+        compute = {r["strategy"]: r for r in rep["rows"]
+                   if r["term"] == "compute_s"}
+        want = (set(plan.probed_strategies()) if rep["mesh"] == "2x2x2"
+                else {"dr", "dd", "pd", "pd_xt", "dd_lpt"})
+        assert set(compute) == want
+        for s, r in compute.items():
+            spec = reconcile.PROBED[s]
+            shape = spec.plan_shape(mesh, spec.default_axes(mesh))
+            pred = plan.estimate(dom, inst.n, shape, loads=loads)[s]
+            ratio = r["measured_s"] / pred["compute_s"]
+            assert 1 / 5 < ratio < 5, (rep["mesh"], s, ratio)
+    cal = plan.calibrate_host(str(path), base=plan.H100_SEED)
+    assert 0.5 < cal.peak_flops / plan.H100.peak_flops < 2.0
+    assert 0.5 < cal.mxu_derate / plan.H100.mxu_derate < 2.0
+    # the fit moved far from the card's published peak
+    assert plan.H100_SEED.peak_flops / plan.H100.peak_flops > 1e3

@@ -1,6 +1,7 @@
 """The port's observability layer (counterparts of ``tests/test_obs.py``:
 spans, Chrome export, counters/gauges, histograms, registry merge and reset,
-the timer) and the spans/counters of the layers that report into it."""
+the timer, the planner reconciliation) and the spans/counters of the layers
+that report into it."""
 import json
 
 import numpy as np
@@ -225,3 +226,92 @@ def test_nonfinite_output_counted():
     with pytest.raises(NonFiniteOutputError):
         ensure_finite(bad, "probe")
     assert metrics.counter("resilience.nonfinite").value == 2
+
+
+# -------------------------------------------------------------- reconcile
+def test_reconcile_smoke_8dev_all_registry_strategies():
+    """reconcile.run on a 2x2x2 mesh of CPU shards probes every PROBED
+    strategy and emits all four terms per strategy — no silently missing
+    rows — and predicts what the reference's ``plan.estimate`` predicts
+    for the same plan shape, loads and record (``HOST`` on the CPU)."""
+    from repro.core import plan as ref_plan
+    from repro.obs import reconcile as ref_reconcile
+
+    from repro_torch.distributed import make_host_mesh
+    from repro_torch.obs import reconcile
+
+    ref = RefDomain(gx=48.0, gy=48.0, gt=16.0, sres=1.0, tres=1.0, hs=3.0,
+                    ht=2.0)
+    dom = convert.domain_from_reference(ref)
+    pts = clustered_events(1500, ref, seed=0)
+    mesh = make_host_mesh(8, multi_pod=True, device="cpu")
+    res = reconcile.run(pts, dom, mesh, reps=1)
+    assert res["hw"] == "host" and res["mesh"] == "2x2x2"
+    assert (res["n"], res["grid"]) == (1500, "48x48x16")
+    assert "nvidia_smi" not in res     # the mesh is not on a card
+    strategies = {r["strategy"] for r in res["rows"]}
+    assert strategies == set(reconcile.PROBED) == set(ref_reconcile.PROBED)
+    for strat in strategies:
+        terms = {r["term"] for r in res["rows"] if r["strategy"] == strat}
+        assert terms == set(reconcile.TERMS) == set(ref_reconcile.TERMS)
+    for r in res["rows"]:
+        assert r["measured_s"] >= 0
+        assert r["rel_err"] is not None
+    assert "strategy" in res["report"]
+    loads = ref_bucketing.bucket_points_home(
+        pts, ref, (24, 24, 16)).counts.reshape(-1).astype(np.float64)
+    for strat in strategies:
+        spec = ref_reconcile.PROBED[strat]
+        shape = spec.plan_shape(mesh, spec.default_axes(mesh))
+        assert shape == reconcile.PROBED[strat].plan_shape(
+            mesh, reconcile.PROBED[strat].default_axes(mesh))
+        want = ref_plan.estimate(ref, 1500, shape, loads=loads,
+                                 hw=ref_plan.HOST)[strat]
+        got = {r["term"]: r["predicted_s"] for r in res["rows"]
+               if r["strategy"] == strat}
+        assert got == {t: want[t] for t in reconcile.TERMS}, strat
+    assert len(trace.get_tracer().spans("reconcile.measure")) == 1
+
+
+def test_measure_strategy_error_lists_registry_keys():
+    from repro_torch.obs import reconcile
+
+    with pytest.raises(ValueError) as ei:
+        reconcile.measure_strategy(
+            np.zeros((1, 3), np.float32), None, None, "nope")
+    for name in reconcile.PROBED:
+        assert name in str(ei.value)
+
+
+def test_reconcile_rows_and_report_text_match_reference():
+    """``reconcile`` and ``report_text`` on fixed inputs (a missing
+    prediction, a missing measured term, zero predictions) and on the
+    committed H100 rows give the reference's output exactly; records are
+    named as the reference names its own."""
+    import pathlib
+
+    from repro.obs import reconcile as ref_reconcile
+
+    from repro_torch.core import plan
+    from repro_torch.obs import reconcile
+
+    predicted = {"dr": {"init_s": 0.5, "compute_s": 2.0, "comm_s": 0.0,
+                        "total_s": 2.5},
+                 "pd": {"init_s": 1e-6, "compute_s": 3.25}}
+    measured = {"dr": {"init_s": 0.25, "compute_s": 3.0, "comm_s": 0.125,
+                       "total_s": 3.375},
+                "pd": {"init_s": 2e-6, "compute_s": 1.0, "total_s": 1.5},
+                "hybrid": {"total_s": 0.75}}
+    rows = reconcile.reconcile(predicted, measured)
+    assert rows == ref_reconcile.reconcile(predicted, measured)
+    assert reconcile.report_text(rows) == ref_reconcile.report_text(rows)
+    path = (pathlib.Path(__file__).resolve().parent.parent / "results"
+            / "torch" / "reconcile_h100.json")
+    for rep in json.load(open(path)):
+        assert reconcile.report_text(rep["rows"]) == rep["report"] == \
+            ref_reconcile.report_text(rep["rows"])
+    names = {name: reconcile._hw_name(getattr(plan, rec)) for name, rec in (
+        ("host", "HOST"), ("host_seed", "HOST_SEED"), ("h100", "H100"),
+        ("h100_seed", "H100_SEED"))}
+    assert all(k == v for k, v in names.items()), names
+    assert reconcile._hw_name(plan.Hardware(1.0, 1.0, 1.0, 1.0)) == "custom"
