@@ -29,7 +29,12 @@ terms per strategy on those meshes (``obs.reconcile.run``), re-fits the H100
 record from them, lets ``strategy="auto"`` pick at both instances and
 loses devices in a chunked run on a mesh, which must shrink, re-plan and
 finish; ``degrade`` walks the degrade ladder with the tile kernel as the
-query and serves a partial answer from a journal.
+query and serves a partial answer from a journal. ``lm_serve`` runs the ten
+``reduced`` language models on the card against the CPU, then the full
+``smollm-360m`` through the bucketed ``ServingEngine`` (8 greedy requests,
+fp32 against a teacher-forced ``forward``, bf16 with its tokens per
+second). The tile branch buckets its points on the card; its buckets are
+held bit for bit against the host's numpy bucketing at both full-size rows.
 
 Every phase prints one JSON line. Any failure exits non-zero; without a CUDA
 device the script exits non-zero before it prints a result. The last line is
@@ -40,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import resource
 import statistics
 import subprocess
 import sys
@@ -271,45 +277,67 @@ def plan_fields(plan, tile) -> dict:
 
 
 def staged_tile_path(pts: np.ndarray, dom, timed_runs: int) -> dict:
-    """The tile branch of ``stkde`` stage by stage, each stage timed: host
-    bucketing, copy to the card, kernel (given the host's counts, as
-    ``stkde_tiled`` does), slice + finite check. The kernel is timed twice:
-    the wrapper as the main path calls it (host planning, the plan's copy,
-    the launches), and the device work alone (split pass + reduction on a
-    plan made beforehand)."""
+    """The tile branch of ``stkde`` stage by stage, each stage timed: the
+    points' copy to the card, overlap bucketing and padding on the card,
+    the kernel's inputs (the tiles' loads back to the host for its work
+    plan), kernel (given the host's counts, as ``stkde_tiled`` does), slice
+    + finite check. The kernel is timed twice: the wrapper as the main path
+    calls it (host planning, the plan's copy, the launches), and the device
+    work alone (split pass + reduction on a plan made beforehand). The
+    card's buckets are held bit for bit against the host's numpy
+    bucketing of the same points (timed too, as the stage it replaced)."""
     from repro_torch import convert
+    from repro_torch._device import points_to_device
     from repro_torch.core import kernels_math as km
     from repro_torch.kernels import ops, stkde_tile, stkde_tiles_cuda
     from repro_torch.resilience import ensure_finite
 
     tile = ops.default_tile(dom)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    ops.prepare_tiles(points_to_device(pts, dev), dom, tile)   # warm-up
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    b, chunk = ops.prepare_tiles(pts, dom, tile)
+    on_card = points_to_device(pts, dev)
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
-    t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile, b.cap)
+    b, chunk = ops.prepare_tiles(on_card, dom, tile)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    host_counts = torch.from_numpy(b.counts.astype(np.int32))
+    t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile, b.cap)
+    host_counts = t.counts.cpu()
+    t3 = time.perf_counter()
     wrapper_ms, padded = cuda_ms(
         lambda: stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, tile, t.cap,
                                  len(pts), chunk, mode="compiled",
                                  counts=host_counts),
         warmup=1, runs=timed_runs)
-    t3 = time.perf_counter()
+    t4 = time.perf_counter()
     grid = ensure_finite(padded[: dom.Gx, : dom.Gy, : dom.Gt], "smoke.tiled")
     torch.cuda.synchronize()
-    t4 = time.perf_counter()
+    t5 = time.perf_counter()
     prep = stkde_tile._prepare(t.pts_tiles, t.valid_tiles, host_counts, dom,
                                tile, t.cap, len(pts), chunk, km.DEFAULT_KS,
                                km.DEFAULT_KT, None)
     torch.cuda.synchronize()
-    plan_s = time.perf_counter() - t4
+    plan_s = time.perf_counter() - t5
     kernel_ms, device_only = cuda_ms(
         lambda: stkde_tile._run(prep, t.pts_tiles, t.valid_tiles),
         warmup=1, runs=timed_runs)
     if not torch.equal(device_only, padded):
         fail("the prepared launch differs from the wrapper's")
-    counts = b.counts.astype(np.int64)
+    counts = b.counts.cpu().numpy().astype(np.int64)
+
+    h0 = time.perf_counter()
+    nb, nchunk = ops.prepare_tiles(pts, dom, tile)
+    host_bucketing_s = time.perf_counter() - h0
+    same = {"points": bool(torch.equal(b.points,
+                                       torch.from_numpy(nb.points).cuda())),
+            "valid": bool(torch.equal(b.valid,
+                                      torch.from_numpy(nb.valid).cuda())),
+            "counts": bool(np.array_equal(counts, nb.counts)),
+            "cap_and_chunk": (b.cap, chunk) == (nb.cap, nchunk)}
+    del nb
     ks_name = km.DEFAULT_KS.__name__
     plan = prep.plan
     walked = int((-(-plan.items[:, 2].astype(np.int64) // 8) * 8).sum())
@@ -317,6 +345,8 @@ def staged_tile_path(pts: np.ndarray, dom, timed_runs: int) -> dict:
         "inputs": t, "chunk": chunk, "tile": tile, "grid": grid,
         "padded": padded, "counts_host": counts, "host_counts": host_counts,
         "plan": plan,
+        "buckets_bit_identical_to_numpy": {**same,
+                                           "ok": all(same.values())},
         "bounds": {
             "useful": bound_ms(int(counts.sum()), tile, counts.size,
                                ks_name),
@@ -324,9 +354,11 @@ def staged_tile_path(pts: np.ndarray, dom, timed_runs: int) -> dict:
             "padded": bound_ms(counts.size * b.cap, tile, counts.size,
                                ks_name),
         },
-        "times": {"host_bucketing_s": t1 - t0, "h2d_s": t2 - t1,
+        "times": {"points_h2d_s": t1 - t0, "device_bucketing_s": t2 - t1,
+                  "kernel_inputs_and_counts_d2h_s": t3 - t2,
                   "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
-                  "plan_and_copy_s": plan_s, "slice_check_s": t4 - t3},
+                  "plan_and_copy_s": plan_s, "slice_check_s": t5 - t4,
+                  "numpy_host_bucketing_s": host_bucketing_s},
         "shape": {"ntiles": list(b.ntiles), "cap": b.cap, "chunk": chunk,
                   "copies_per_point": b.replication_factor,
                   "bucket_bytes": int(t.pts_tiles.nbytes
@@ -490,6 +522,8 @@ def phase_kernels() -> dict:
     emit("kernels", kernels=[{
         "name": "stkde_tile", "small_cases": results,
         "small_tolerance": SMALL_TOL, "full_size": full_size}])
+    full_size["buckets_bit_identical_to_numpy"] = \
+        st["buckets_bit_identical_to_numpy"]
     if not (full["ok"] and full_padded["ok"] and bit_identical
             and two_launches and plan.max_segment <= plan.seg):
         fail("stkde_tile disagrees with its plain version, or with itself, "
@@ -501,6 +535,7 @@ def phase_kernels() -> dict:
         "bound_ms": b_useful["bound_ms"], "bound_by": b_useful["bound_by"],
         "pollen_grid": st["grid"], "pollen_times": st["times"],
         "pollen_shape": st["shape"], "pollen_bounds": st["bounds"],
+        "pollen_buckets": st["buckets_bit_identical_to_numpy"],
     }
 
 
@@ -541,7 +576,8 @@ def phase_main_path(kern: dict) -> dict:
         if inst.name == "PollenUS_Hr-Lb":   # staged in the kernels phase
             st = {"grid": kern["pollen_grid"], "times": kern["pollen_times"],
                   "shape": kern["pollen_shape"],
-                  "bounds": kern["pollen_bounds"]}
+                  "bounds": kern["pollen_bounds"],
+                  "buckets_bit_identical_to_numpy": kern["pollen_buckets"]}
         else:
             st = staged_tile_path(pts, dom, timed_runs=5)
         staged_grid, stage_times = st["grid"], st["times"]
@@ -571,12 +607,15 @@ def phase_main_path(kern: dict) -> dict:
             "scatter_branch_first_call_s": scatter_first_s,
             "tile_branch_stages": stage_times,
             "tile_branch_shape": st["shape"],
+            "card_buckets_bit_identical_to_numpy":
+                st["buckets_bit_identical_to_numpy"],
             "kernel_bound_useful_ms": st["bounds"]["useful"]["bound_ms"],
         }
         row["ok"] = (row["shape_ok"] and row["finite"] and agree["ok"]
                      and row["same_as_staged_run"] and tiled.is_cuda
                      and scatter.is_cuda and tiled.dtype == torch.float32
-                     and 0.0 < row["mass_tiled"] <= 1.001)
+                     and 0.0 < row["mass_tiled"] <= 1.001
+                     and st["buckets_bit_identical_to_numpy"]["ok"])
         ok = ok and row["ok"]
         rows.append(row)
     emit("main_path", launches=launches, instances=rows)
@@ -1219,9 +1258,12 @@ def auto_query(inst, mesh, single: torch.Tensor) -> dict:
     """``stkde(points, dom, mesh=mesh)`` with the default ``auto``: the
     planner's pick and ranking, the query's seconds, and every candidate
     strategy's query seconds in the same run; the grid against the
-    single-device query."""
+    single-device query. The pick must be among the three fastest measured
+    queries. DD-LPT's ``prepare`` (bucketing on the card, the host's LPT,
+    one gather) is timed apart: the planner does not price it."""
     from repro_torch.core import plan, stkde
     from repro_torch.core.api import _auto_strategy, _home_loads, _plan_shape
+    from repro_torch.distributed import stkde_dist as sd
 
     dom, pts = inst.domain(), inst.points()
     loads = _home_loads(pts, dom, mesh, AXES2)
@@ -1240,13 +1282,19 @@ def auto_query(inst, mesh, single: torch.Tensor) -> dict:
                                                   strategy=s))
         torch.cuda.empty_cache()
     fastest = sorted(measured, key=measured.get)
+    _, lpt_prepare_s = host_timed(
+        lambda: sd.prepare_dd_lpt(pts, dom, mesh, AXES2))
+    torch.cuda.empty_cache()
+    in_three = pick in fastest[:3]
     return {"instance": inst.name, "n": len(pts), "mesh": mesh_fields(mesh),
             "pick": pick, "auto_query_s": auto_s,
             "predicted_ranking": ranking,
             "predicted_total_s": {k: table[k]["total_s"] for k in ranking},
             "measured_query_s": measured, "measured_ranking": fastest,
-            "pick_in_measured_three_fastest": pick in fastest[:3],
-            "vs_single_device": vs_single, "ok": vs_single["ok"]}
+            "pick_in_measured_three_fastest": in_three,
+            "dd_lpt_prepare_s": lpt_prepare_s,
+            "vs_single_device": vs_single,
+            "ok": vs_single["ok"] and in_three}
 
 
 def recovering_chunked(inst, mesh, single: torch.Tensor) -> dict:
@@ -1455,6 +1503,226 @@ def phase_degrade(dev: dict) -> int:
     return launches
 
 
+# ------------------------------------------------------------ lm_serve
+# fp32 on the card vs fp32 on the CPU, atol a share of the logits' largest
+# magnitude: rwkv6 keeps its decay in fp32 by design, and 1-ulp differences
+# of fp32 exp between the two devices reach its logits much amplified (the
+# reduced rows' float64 fields show the gap that is left in float64)
+LM_TOL = dict(rtol=1e-4, atol_rel_to_max=1e-5)
+# bf16 decode_step vs bf16 forward, as a share of the forward logits' max:
+# bf16 keeps 8 bits of mantissa, and the two paths round in other places
+# over 32 layers
+BF16_DECODE_BAR = 0.05
+LM_PROMPTS = (64, 64, 64, 64, 128, 128, 128, 128)
+LM_MAX_NEW = 32
+
+
+def lm_inputs(cfg, B: int, S: int, seed: int):
+    """Token ids and stub frontend embeddings from numpy, as tensors."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    kw = {}
+    if cfg.frontend == "vision":
+        kw["vision_embeds"] = torch.from_numpy((rng.normal(size=(
+            B, cfg.n_vision_tokens, cfg.d_model)) * 0.02).astype(np.float32))
+    if cfg.enc_dec:
+        kw["audio_frames"] = torch.from_numpy((rng.normal(size=(
+            B, cfg.enc_seq, cfg.d_model)) * 0.02).astype(np.float32))
+    return toks, kw
+
+
+def reduced_on_card() -> list:
+    """Each of the ten ``reduced`` configs, fp32, with the same seeded
+    weights on the card and on the CPU: forward logits, prefill logits and
+    two decode steps' logits on the card against the CPU's; beside them,
+    the forward's distance between the devices in float64 and of each
+    device's fp32 from the CPU's float64."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+
+    rows = []
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        cpu_params = init_params(cfg, device="cpu", seed=0)
+        card_params = tree_map(lambda a: a.cuda(), cpu_params)
+        toks, kw = lm_inputs(cfg, 2, 16, seed=1)
+        out = {}
+        for where, params in (("cpu", cpu_params), ("cuda", card_params)):
+            t = toks.to(where)
+            k = {a: v.to(where) for a, v in kw.items()}
+            with torch.inference_mode():
+                logits, _ = forward(cfg, params, t, **k)
+                pl, state = prefill(cfg, params, t[:, :12], max_seq=32, **k)
+                steps = []
+                for i in (12, 13):
+                    lg, state = decode_step(cfg, params, t[:, i:i + 1],
+                                            state)
+                    steps.append(lg)
+            out[where] = [logits, pl] + steps
+        cmp = [compare(g.cpu(), w, LM_TOL["rtol"],
+                       LM_TOL["atol_rel_to_max"] * float(w.abs().max()))
+               for g, w in zip(out["cuda"], out["cpu"])]
+        # the forward again in float64 (the ops the model keeps in fp32 by
+        # design stay fp32): how far the two devices' arithmetic alone
+        # moves the logits, and how far fp32 is from float64 on the CPU
+        f64 = {}
+        cfg64 = cfg.replace(compute_dtype="float64")
+        for where, params in (("cpu", cpu_params), ("cuda", card_params)):
+            p64 = tree_map(lambda a: a.double(), params)
+            k = {a: v.to(where, torch.float64) for a, v in kw.items()}
+            with torch.inference_mode():
+                f64[where] = forward(cfg64, p64, toks.to(where), **k)[0] \
+                    .cpu()
+        rows.append({"arch": cfg.name,
+                     "forward": cmp[0], "prefill": cmp[1],
+                     "decode": cmp[2:],
+                     "forward_float64_card_vs_cpu_max_abs": float(
+                         (f64["cuda"] - f64["cpu"]).abs().max()),
+                     "forward_fp32_card_vs_cpu_float64_max_abs": float(
+                         (out["cuda"][0].cpu().double() - f64["cpu"])
+                         .abs().max()),
+                     "forward_fp32_cpu_vs_cpu_float64_max_abs": float(
+                         (out["cpu"][0].double() - f64["cpu"]).abs().max()),
+                     "finite": all(bool(torch.isfinite(g).all())
+                                   for g in out["cuda"]),
+                     "ok": all(c["ok"] for c in cmp)})
+    return rows
+
+
+def teacher_forced_check(cfg, params, prompts, results) -> dict:
+    """Each request's tokens against the argmax of one ``forward`` over its
+    prompt and its generated tokens (all but the last)."""
+    from repro_torch.models import forward
+
+    agree, total, worst = 0, 0, []
+    for uid, prompt in enumerate(prompts):
+        gen = results[uid].tokens
+        seq = torch.from_numpy(np.concatenate([prompt, gen[:-1]])
+                               .astype(np.int64))[None].cuda()
+        with torch.inference_mode():
+            logits, _ = forward(cfg, params, seq)
+        want = logits[0, len(prompt) - 1:].argmax(-1).cpu().numpy()
+        agree += int((want == gen).sum())
+        total += len(gen)
+        if not np.array_equal(want, gen):
+            worst.append(uid)
+    return {"tokens": total, "agree": agree, "requests_differing": worst,
+            "ok": agree == total}
+
+
+def decode_vs_forward(cfg, params, prompt: np.ndarray, steps: int) -> dict:
+    """Prefill the prompt's first tokens, decode the rest teacher-forced:
+    the largest logits difference against ``forward`` over the whole
+    prompt, and as a share of the forward logits' largest magnitude."""
+    from repro_torch.models import decode_step, forward, prefill
+
+    toks = torch.from_numpy(prompt.astype(np.int64))[None].cuda()
+    S0 = len(prompt) - steps
+    with torch.inference_mode():
+        logits, _ = forward(cfg, params, toks)
+        _, state = prefill(cfg, params, toks[:, :S0], max_seq=len(prompt))
+        err = 0.0
+        for t in range(S0, len(prompt)):
+            lg, state = decode_step(cfg, params, toks[:, t:t + 1], state)
+            err = max(err, float((lg[0, 0] - logits[0, t]).abs().max()))
+    scale = float(logits[0, S0:].abs().max())
+    return {"steps": steps, "max_abs_err": err, "logits_max_abs": scale,
+            "share": err / scale}
+
+
+def serve_smollm(cfg, params, prompts) -> dict:
+    """The bucketed engine on the card: 8 greedy requests in two buckets of
+    4, ``max_new`` tokens each; its stats and the port's serve gauges."""
+    from repro_torch.obs import metrics
+    from repro_torch.serve import EngineConfig, ServingEngine
+
+    metrics.reset()
+    eng = ServingEngine(cfg, params, EngineConfig(
+        continuous_batching=False, max_batch=4, max_seq=256))
+    for uid, p in enumerate(prompts):
+        eng.submit(uid, p, max_new=LM_MAX_NEW)
+    t0 = time.perf_counter()
+    results = eng.run_detailed()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g = metrics.export()["gauges"]
+    st = eng.last_stats
+    return {"results": results, "fields": {
+        "compute_dtype": cfg.compute_dtype, "wall_s": wall,
+        "n_tokens": st["n_tokens"], "decode_steps": st["decode_steps"],
+        "decode_s": st["decode_s"],
+        "serve.tokens_per_s": g.get("serve.tokens_per_s"),
+        "serve.decode_tokens_per_s": g.get("serve.decode_tokens_per_s"),
+        "all_ok": all(r.ok and not r.degraded for r in results.values()),
+        "all_full_length": all(len(r.tokens) == LM_MAX_NEW
+                               for r in results.values())}}
+
+
+def phase_lm_serve(dev: dict) -> None:
+    """The language-model stack on the card (no kernel of its own: the
+    reference's attention is jnp, ported as plain ops). The ten ``reduced``
+    configs against the CPU; then ``smollm-360m`` at full width and depth
+    (seeded weights, 1.45 GB fp32) through the bucketed ``ServingEngine``:
+    8 greedy requests (4 of 64 tokens, 4 of 128), 32 new tokens each, once
+    in fp32 (every token the argmax of a teacher-forced ``forward``) and
+    once in the config's bf16 (``decode_step`` against ``forward``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import leaves
+
+    t0 = time.perf_counter()
+    reduced_rows = reduced_on_card()
+    t_reduced = time.perf_counter() - t0
+
+    full = get_arch("smollm-360m")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(full, device="cuda", seed=0)
+    param_bytes = sum(a.nbytes for a in leaves(params))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, full.vocab, n) for n in LM_PROMPTS]
+    runs = {}
+    for dtype in ("float32", full.compute_dtype):
+        cfg = full.replace(compute_dtype=dtype)
+        served = serve_smollm(cfg, params, prompts)
+        fields = served["fields"]
+        if dtype == "float32":
+            fields["teacher_forced"] = teacher_forced_check(
+                cfg, params, prompts, served["results"])
+        fields["decode_vs_forward"] = decode_vs_forward(
+            cfg, params, prompts[-1], steps=16)
+        runs[dtype] = fields
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    fp32, bf16 = runs["float32"], runs[full.compute_dtype]
+    ok = (all(r["ok"] and r["finite"] for r in reduced_rows)
+          and all(r["all_ok"] and r["all_full_length"] for r in runs.values())
+          and fp32["teacher_forced"]["ok"]
+          and fp32["decode_vs_forward"]["max_abs_err"] < 5e-3
+          and bf16["decode_vs_forward"]["share"] < BF16_DECODE_BAR)
+    emit("lm_serve", nvidia_smi=dev["nvidia_smi"], reduced=reduced_rows,
+         reduced_tolerance={**LM_TOL, "why": "fp32 on the card against "
+                            "fp32 on the CPU, same weights; atol a share of "
+                            "the logits' largest magnitude (rwkv6's fp32 "
+                            "decay amplifies 1-ulp differences)"},
+         reduced_s=t_reduced,
+         smollm={"arch": full.name, "n_layers": full.n_layers,
+                 "d_model": full.d_model, "n_heads": full.n_heads,
+                 "n_kv_heads": full.n_kv_heads, "d_ff": full.d_ff,
+                 "vocab": full.vocab, "param_bytes": param_bytes,
+                 "prompts": list(LM_PROMPTS), "max_new": LM_MAX_NEW,
+                 "max_batch": 4, "max_seq": 256,
+                 "peak_device_bytes": peak, "runs": runs,
+                 "bars": {"fp32_decode_vs_forward_abs": 5e-3,
+                          "bf16_decode_vs_forward_share":
+                              BF16_DECODE_BAR}},
+         seconds=seconds)
+    if not ok:
+        fail("lm_serve: a check failed (see the lm_serve line)")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1470,7 +1738,10 @@ def main() -> None:
     launches += phase_distributed(dev)
     launches += phase_planner(dev)
     launches += phase_degrade(dev)
-    emit("total", seconds=time.perf_counter() - t_start)
+    phase_lm_serve(dev)
+    emit("total", seconds=time.perf_counter() - t_start,
+         peak_host_rss_bytes=resource.getrusage(
+             resource.RUSAGE_SELF).ru_maxrss * 1024)
     print(json.dumps({"kernels": [{
         "name": "stkde_tile", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stkde_tile.cu",

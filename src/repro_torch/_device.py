@@ -1,8 +1,10 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and the one
+copy of a point set to its device."""
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from .resilience.errors import KernelUnavailableError
@@ -20,3 +22,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "plain PyTorch versions on the host"
         )
     return dev
+
+
+def points_to_device(points, device: torch.device) -> torch.Tensor:
+    """The ``(n, 3)`` float32 points on ``device``, copied once (from pinned
+    host memory when the device is a card)."""
+    pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.float32))
+    if device.type == "cuda":
+        return pts.pin_memory().to(device, non_blocking=True)
+    return pts.to(device)

@@ -1,8 +1,9 @@
 """State carried across from the reference package.
 
 Nothing here imports the reference: a domain is read by attribute from any
-object that has the ten fields, and bucket arrays arrive as numpy arrays, so
-that a parity test can hand both packages the same bytes.
+object that has the ten fields, bucket arrays arrive as numpy arrays (or
+tensors), and language-model parameters as a tree of numpy arrays, so that a
+parity test can hand both packages the same bytes.
 """
 from __future__ import annotations
 
@@ -35,24 +36,38 @@ class TileInputs(NamedTuple):
     cap: int
 
 
-def buckets_to_torch(points: np.ndarray, valid: np.ndarray,
-                     counts: np.ndarray, tile: Tuple[int, int, int],
+def buckets_to_torch(points, valid, counts, tile: Tuple[int, int, int],
                      cap: int, device: DeviceLike = None) -> TileInputs:
-    """Turn numpy ``Buckets`` arrays (``points``, ``valid``, ``counts``) into
-    the tensors the tile kernel takes. ``device=None`` means ``"cuda"``."""
+    """Turn ``Buckets`` arrays (``points``, ``valid``, ``counts``: numpy
+    arrays, or tensors) into the tensors the tile kernel takes.
+    ``device=None`` means ``"cuda"``. Tensors already on the device are not
+    copied."""
     dev = resolve_device(device)
-    points = np.ascontiguousarray(points, dtype=np.float32)
-    if points.ndim != 5 or points.shape[3:] != (cap, 3):
+    points = torch.as_tensor(points)
+    if points.ndim != 5 or tuple(points.shape[3:]) != (cap, 3):
         raise ValueError(
             f"points must be (ntx, nty, ntt, {cap}, 3); got {points.shape}")
+    valid, counts = torch.as_tensor(valid), torch.as_tensor(counts)
     if valid.shape != points.shape[:4] or counts.shape != points.shape[:3]:
         raise ValueError(
-            f"valid {valid.shape} / counts {counts.shape} do not match "
-            f"points {points.shape}")
+            f"valid {tuple(valid.shape)} / counts {tuple(counts.shape)} do "
+            f"not match points {tuple(points.shape)}")
     return TileInputs(
-        torch.from_numpy(points).to(dev),
-        torch.from_numpy(np.ascontiguousarray(valid, dtype=np.float32)).to(dev),
-        torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32)).to(dev),
+        points.to(dev, torch.float32).contiguous(),
+        valid.to(dev, torch.float32).contiguous(),
+        counts.to(dev, torch.int32).contiguous(),
         tuple(int(b) for b in tile),
         int(cap),
     )
+
+
+def lm_params_from_reference(tree: Any, device: DeviceLike = None) -> Any:
+    """The port's language-model parameters from the reference's
+    ``init_params`` tree (nested dicts of arrays, per-layer weights stacked
+    on a leading L axis; hand it over as numpy arrays). The port keeps the
+    same tree, so each leaf becomes a tensor on ``device`` (``None`` means
+    ``"cuda"``) with the same dtype and bits."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_reference(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)

@@ -46,6 +46,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import points_to_device
 from ..core import bucketing, kernels_math as km
 from ..core.geometry import Domain
 from ..core.pb import _pb_impl
@@ -97,9 +98,12 @@ def _used(bval: torch.Tensor) -> np.ndarray:
         torch.int64).cpu().numpy()
 
 
-def _to_mesh(arr: np.ndarray, mesh: Mesh) -> torch.Tensor:
-    """A prepared host array, copied once to the mesh's first device; each
-    shard's slice moves on to its own device when the build runs."""
+def _to_mesh(arr, mesh: Mesh) -> torch.Tensor:
+    """A prepared array on the mesh's first device: a host array is copied
+    there once, a tensor already there is not copied. Each shard's slice
+    moves on to its own device when the build runs."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(mesh.first_device)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(mesh.first_device)
 
 
@@ -692,6 +696,10 @@ def prepare_dd_lpt(
 ):
     """Fine-tile bucket + LPT placement for DD-LPT.
 
+    The points are copied to the mesh's first device once and bucketed
+    there; the host sees only the tiles' loads (for LPT). Each device's
+    slots are one gather from the buckets.
+
     Returns ``((dpts, dval, dpos), ctx)``: the first element holds the
     arguments of the function ``build_dd_lpt`` returns; ``ctx`` carries the
     parameters (``tile``, ``k``, ``cap``, ``ntiles``) that ``build_dd_lpt``
@@ -700,30 +708,38 @@ def prepare_dd_lpt(
     """
     A, B = _mesh_sizes(mesh, axes)
     Ptot = A * B
-    pts = np.asarray(points, dtype=np.float32)
     if tile is None:
         tile = bucketing.default_tile(dom)
     bx, by, bt = tile
-    b = bucketing.bucket_points_overlap(pts, dom, tile, cap=cap)
+    dev = mesh.first_device
+    b = bucketing.bucket_points_overlap(
+        points_to_device(points, dev), dom, tile, cap=cap)
     ntx, nty, ntt = b.ntiles
-    loads = b.counts.reshape(-1).astype(np.float64)
+    loads = b.counts.reshape(-1).cpu().numpy().astype(np.float64)
     assign = partition.lpt_assign(loads, Ptot)
     k = max(len(t) for t in assign.tiles_of_device)
 
-    capn = b.cap
-    dpts = np.full((Ptot, k, capn, 3), PARK, dtype=np.float32)
-    dval = np.zeros((Ptot, k, capn), dtype=np.float32)
-    dpos = np.zeros((Ptot, k, 3), dtype=np.int32)
-    flat_pts = b.points.reshape(-1, capn, 3)
-    flat_val = b.valid.reshape(-1, capn)
+    # (P, k) slot -> tile table; an empty slot gathers tile 0 and is then
+    # parked (points PARK, valid 0, origin 0)
+    slot_tile = np.zeros((Ptot, k), dtype=np.int64)
+    empty = np.ones((Ptot, k), dtype=bool)
     for p, tiles in enumerate(assign.tiles_of_device):
-        for s, t in enumerate(tiles):
-            ti, tj, tk = np.unravel_index(t, (ntx, nty, ntt))
-            dpts[p, s] = flat_pts[t]
-            dval[p, s] = flat_val[t]
-            dpos[p, s] = (ti * bx, tj * by, tk * bt)
+        slot_tile[p, :len(tiles)] = tiles
+        empty[p, :len(tiles)] = False
+    ti, tj, tk = np.unravel_index(slot_tile, (ntx, nty, ntt))
+    dpos = np.stack([ti * bx, tj * by, tk * bt], axis=-1).astype(np.int32)
+    dpos[empty] = 0
+
+    capn = b.cap
+    idx = torch.from_numpy(slot_tile).to(dev)
+    gone = torch.from_numpy(empty).to(dev)
+    dpts = b.points.reshape(-1, capn, 3)[idx]
+    dpts[gone] = PARK
+    dval = b.valid.reshape(-1, capn)[idx].to(torch.float32)
+    dval[gone] = 0.0
+    del b
     args = (_to_mesh(dpts, mesh), _to_mesh(dval, mesh), _to_mesh(dpos, mesh))
-    ctx = {"tile": tile, "k": k, "cap": capn, "ntiles": b.ntiles}
+    ctx = {"tile": tile, "k": k, "cap": capn, "ntiles": (ntx, nty, ntt)}
     return args, ctx
 
 
@@ -760,7 +776,8 @@ def build_dd_lpt(dom: Domain, mesh: Mesh, axes, n: int,
     separable contraction ``einsum("pxy,pt->xyt")`` in batches of tiles
     whose ``Ks`` panel holds at most ``budget_elems`` values, each tile cut
     to its used prefix of the capacity (the padded rest would add exact
-    zeros), and adds them into its grid in LPT order. ``collectives=False``
+    zeros), and places each batch's tiles into its grid with one
+    ``index_add_`` (a device's tiles are disjoint). ``collectives=False``
     skips the tile-soup assembly psum and returns the device-stacked
     partial grids. (The product is deterministic: ``deterministic`` is
     accepted for a uniform signature.)
@@ -788,6 +805,10 @@ def build_dd_lpt(dom: Domain, mesh: Mesh, axes, n: int,
         for s, dev in enumerate(devs):
             hs = torch.tensor(dom.hs, dtype=torch.float32, device=dev)
             ht = torch.tensor(dom.ht, dtype=torch.float32, device=dev)
+            # offset of each voxel of a tile from the tile's origin in g
+            offs = ((torch.arange(bx, device=dev)[:, None, None] * Gyp
+                     + torch.arange(by, device=dev)[None, :, None]) * Gtp
+                    + torch.arange(bt, device=dev)[None, None, :])
             g = torch.zeros((Gxp, Gyp, Gtp), dtype=torch.float32, device=dev)
             for a, e, cut in _tile_batches(used[s], bx * by, budget_elems):
                 p = dpts[s, a:e, :cut].to(dev)                # (T, cut, 3)
@@ -804,9 +825,13 @@ def build_dd_lpt(dom: Domain, mesh: Mesh, axes, n: int,
                 Ks = ks(u[:, :, :, None], v[:, :, None, :]) * norm
                 Kt = kt(w) * val[:, :, None]
                 tiles = torch.einsum("spxy,spt->sxyt", Ks, Kt)
-                for q in range(a, e):
-                    x0, y0, t0 = (int(c) for c in pos[s, q])
-                    g[x0:x0 + bx, y0:y0 + by, t0:t0 + bt] += tiles[q - a]
+                # a device's tiles are disjoint: each voxel gets one value
+                base = torch.from_numpy(
+                    (pos[s, a:e, 0].astype(np.int64) * Gyp
+                     + pos[s, a:e, 1]) * Gtp + pos[s, a:e, 2]).to(dev)
+                g.view(-1).index_add_(
+                    0, (base[:, None, None, None] + offs).reshape(-1),
+                    tiles.reshape(-1))
             grids[s] = g
         if collectives:
             return psum(grids, 0)[()]

@@ -1,8 +1,9 @@
 """Public wrappers around the CUDA tile kernel.
 
-``stkde_tiled(points, dom)`` is the tile path of single-device STKDE:
-host-side overlap bucketing -> copy to the device -> tile kernel -> slice to
-the domain grid. On CPU tensors the plain version runs in the kernel's place.
+``stkde_tiled(points, dom)`` is the tile path of single-device STKDE: copy
+the ``(n, 3)`` points to the device -> overlap bucketing there -> tile
+kernel -> slice to the domain grid. On the CPU the plain version runs in the
+kernel's place.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from .. import convert
-from .._device import DeviceLike
+from .._device import DeviceLike, points_to_device, resolve_device
 from ..core.geometry import Domain
 from ..core import bucketing
 from ..core import kernels_math as km
@@ -36,22 +37,26 @@ def default_tile(dom: Domain) -> Tuple[int, int, int]:
 
 
 def prepare_tiles(
-    points: np.ndarray,
+    points,
     dom: Domain,
     tile: Tuple[int, int, int],
     cap: Optional[int] = None,
     chunk: int = 256,
 ) -> Tuple[bucketing.Buckets, int]:
-    """Host side of the tile path: overlap-bucket the points, pad ``cap`` to
-    a multiple of ``chunk`` and halve ``chunk`` until it divides ``cap``.
-    Returns the padded buckets and the effective chunk."""
-    pts = np.asarray(points, dtype=np.float32)
-    b = bucketing.bucket_points_overlap(pts, dom, tile, cap=cap)
+    """Overlap-bucket the points, pad ``cap`` to a multiple of ``chunk`` and
+    halve ``chunk`` until it divides ``cap``. Returns the padded buckets and
+    the effective chunk. A tensor is bucketed and padded on its device;
+    anything else on the host, as numpy arrays."""
+    b = bucketing.bucket_points_overlap(points, dom, tile, cap=cap)
     cap_eff = bucketing.round_up(b.cap, min(chunk, bucketing.round_up(b.cap, 8)))
     if cap_eff != b.cap:
         pad = cap_eff - b.cap
-        b.points = np.pad(b.points, ((0, 0),) * 3 + ((0, pad), (0, 0)))
-        b.valid = np.pad(b.valid, ((0, 0),) * 3 + ((0, pad),))
+        if isinstance(b.points, torch.Tensor):
+            b.points = torch.nn.functional.pad(b.points, (0, 0, 0, pad))
+            b.valid = torch.nn.functional.pad(b.valid, (0, pad))
+        else:
+            b.points = np.pad(b.points, ((0, 0),) * 3 + ((0, pad), (0, 0)))
+            b.valid = np.pad(b.valid, ((0, 0),) * 3 + ((0, pad),))
         b.cap = cap_eff
     chunk_eff = min(chunk, cap_eff)
     # make chunk divide cap
@@ -77,23 +82,25 @@ def stkde_tiled(
 
     ``mode`` ("auto" | "reference" | "compiled") selects what runs — see
     ``stkde_tiles_cuda``. ``use_ref=True`` calls the plain version directly.
-    The kernel is given the tiles' true loads from the host, so a tile's walk
-    ends with its last real point and not at the padded capacity, and the
-    kernel's work plan needs no copy back from the device.
+    The points are copied to the device once and bucketed there. The kernel
+    is given the tiles' true loads on the host (one copy of ``ntiles`` ints
+    back from the device), so a tile's walk ends with its last real point
+    and not at the padded capacity.
     """
     n = len(points)
     if tile is None:
         tile = default_tile(dom)
-    b, chunk_eff = prepare_tiles(points, dom, tile, cap=cap, chunk=chunk)
+    dev = resolve_device(device)
+    b, chunk_eff = prepare_tiles(points_to_device(points, dev), dom, tile,
+                                 cap=cap, chunk=chunk)
     t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile, b.cap,
-                                 device=device)
+                                 device=dev)
     if use_ref:
         padded = _ref.stkde_tiles_ref(t.pts_tiles, t.valid_tiles, dom, tile,
                                       n, ks, kt, counts=t.counts)
     else:
         padded = stkde_tiles_cuda(
             t.pts_tiles, t.valid_tiles, dom, tile, t.cap, n, chunk_eff,
-            ks, kt, mode=mode, counts=torch.from_numpy(
-                np.ascontiguousarray(b.counts, dtype=np.int32)),
+            ks, kt, mode=mode, counts=t.counts.cpu(),
         )
     return padded[: dom.Gx, : dom.Gy, : dom.Gt]

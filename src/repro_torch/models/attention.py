@@ -1,0 +1,204 @@
+"""Attention: GQA self-attention (full + chunked flash-style), cross-attn,
+and KV-cache decode. MLA lives in mla.py.
+
+Layouts: activations (B, S, D); q/k/v (B, S, H, dh). KV heads are repeated
+to H before the contraction, as in the reference. Everything here is plain
+PyTorch ops (no library attention call): scores and the online-softmax
+accumulators are fp32 where the reference makes them fp32, and masked
+scores are ``-1e30``.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from . import layers
+
+_F32 = torch.float32
+NEG = -1e30
+
+
+class KVCache(NamedTuple):
+    """One layer's dense cache. Decode writes into ``k`` / ``v`` in place;
+    ``index`` is the next write position (a Python int: every row of a
+    bucket decodes in lockstep)."""
+
+    k: torch.Tensor       # (B, S_max, Hkv, dh)
+    v: torch.Tensor       # (B, S_max, Hkv, dh)
+    index: int
+
+
+def attn_init(gen: torch.Generator, cfg, cross: bool = False) -> dict:
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "wq": layers.dense_init(gen, (D, H * dh)),
+        "wk": layers.dense_init(gen, (D, Hkv * dh)),
+        "wv": layers.dense_init(gen, (D, Hkv * dh)),
+        "wo": layers.dense_init(gen, (H * dh, D), scale=out_scale),
+    }
+
+
+def _split_heads(x, n, dh):
+    return x.reshape(x.shape[:-1] + (n, dh))
+
+
+def _repeat_kv(x, q_per_kv):
+    if q_per_kv == 1:
+        return x
+    return torch.repeat_interleave(x, q_per_kv, dim=2)
+
+
+def _mask(q_pos, kv_pos, causal: bool, window: int):
+    """(Sq, Skv) bool: which keys each query may see."""
+    m = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= kv_pos[None, :]
+    if window > 0:
+        m &= q_pos[:, None] - kv_pos[None, :] < window
+    return m
+
+
+def _full_attn(q, k, v, q_pos, kv_pos, causal, window):
+    """q: (B,Sq,H,dh), k/v: (B,Skv,H,dh). Returns (B,Sq,H,dh)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    scores = scores.to(_F32)
+    mask = _mask(q_pos, kv_pos, causal, window)
+    scores = torch.where(mask[None, None], scores, NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _flash_attn(q, k, v, q_pos, kv_pos, causal, window, cq, ckv):
+    """Double-chunked online-softmax attention (long prefill): no (Sq, Skv)
+    score tensor is made, only (cq, ckv) panels; the reference's two
+    ``lax.scan`` loops become Python loops over the chunks."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    nq = -(-Sq // cq)
+    nk = -(-Skv // ckv)
+    pq = nq * cq - Sq
+    pk = nk * ckv - Skv
+    pad = torch.nn.functional.pad
+    q = pad(q, (0, 0, 0, 0, 0, pq))
+    k = pad(k, (0, 0, 0, 0, 0, pk))
+    v = pad(v, (0, 0, 0, 0, 0, pk))
+    q_pos = pad(q_pos, (0, pq), value=-1)                  # masked out
+    kv_pos = pad(kv_pos, (0, pk), value=2**30)             # masked out
+
+    qc = q.reshape(B, nq, cq, H, dh).permute(1, 0, 3, 2, 4)  # (nq,B,H,cq,dh)
+    kc = k.reshape(B, nk, ckv, H, dh).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, nk, ckv, H, dh).permute(1, 0, 3, 2, 4)
+    qpc = q_pos.reshape(nq, cq)
+    kpc = kv_pos.reshape(nk, ckv)
+
+    outs = []
+    for qi in range(nq):
+        qblk, qp = qc[qi], qpc[qi]                         # (B,H,cq,dh)
+        m = torch.full((B, H, cq), -math.inf, dtype=_F32, device=q.device)
+        l = torch.zeros((B, H, cq), dtype=_F32, device=q.device)
+        acc = torch.zeros((B, H, cq, dh), dtype=_F32, device=q.device)
+        for ki in range(nk):
+            s = torch.einsum("bhqd,bhkd->bhqk", qblk, kc[ki]) * scale
+            s = s.to(_F32)
+            msk = _mask(qp, kpc[ki], causal, window)
+            s = torch.where(msk[None, None], s, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(qblk.dtype), vc[ki]).to(_F32)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))
+    out = torch.stack(outs)                                 # (nq,B,H,cq,dh)
+    out = out.permute(1, 0, 3, 2, 4).reshape(B, nq * cq, H, dh)
+    return out[:, :Sq]
+
+
+def attn_apply(
+    cfg,
+    p: dict,
+    x: torch.Tensor,                     # (B, S, D)
+    positions: torch.Tensor,             # (S,)
+    causal: bool = True,
+    kv_source: Optional[torch.Tensor] = None,   # cross-attention memory
+    use_rope: bool = True,
+) -> torch.Tensor:
+    """Training / prefill self- or cross-attention (no cache)."""
+    dt = x.dtype
+    B, S, D = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_source is None else kv_source
+    q = _split_heads(x @ p["wq"].to(dt), H, dh)
+    k = _split_heads(src @ p["wk"].to(dt), Hkv, dh)
+    v = _split_heads(src @ p["wv"].to(dt), Hkv, dh)
+    kv_pos = positions if kv_source is None else torch.arange(
+        src.shape[1], device=x.device)
+    if use_rope and kv_source is None:
+        q = layers.apply_rope(q, positions[None], cfg.rope_theta)
+        k = layers.apply_rope(k, kv_pos[None], cfg.rope_theta)
+    k = _repeat_kv(k, cfg.q_per_kv)
+    v = _repeat_kv(v, cfg.q_per_kv)
+    Skv = k.shape[1]
+    if S * Skv > 4 * 1024 * 1024:
+        out = _flash_attn(q, k, v, positions, kv_pos, causal,
+                          cfg.sliding_window, cfg.attn_chunk_q,
+                          cfg.attn_chunk_kv)
+    else:
+        out = _full_attn(q, k, v, positions, kv_pos, causal,
+                         cfg.sliding_window)
+    return out.reshape(B, S, H * dh) @ p["wo"].to(dt)
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype,
+               device=None) -> KVCache:
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    z = dict(dtype=dtype, device=device)
+    return KVCache(k=torch.zeros((batch, max_seq, Hkv, dh), **z),
+                   v=torch.zeros((batch, max_seq, Hkv, dh), **z), index=0)
+
+
+def attn_decode(
+    cfg,
+    p: dict,
+    x: torch.Tensor,                    # (B, 1, D)
+    cache: KVCache,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode against a dense KV cache, every row at the shared
+    cursor ``cache.index`` (bucketed serving: all rows in lockstep). The new
+    K/V line is written into the cache in place."""
+    dt = x.dtype
+    B = x.shape[0]
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    idx = cache.index
+    q = _split_heads(x @ p["wq"].to(dt), H, dh)
+    k_new = _split_heads(x @ p["wk"].to(dt), Hkv, dh)
+    v_new = _split_heads(x @ p["wv"].to(dt), Hkv, dh)
+    if use_rope:
+        pos = torch.full((1, 1), idx, device=x.device)
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k_new = layers.apply_rope(k_new, pos, cfg.rope_theta)
+    cache.k[:, idx] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, idx] = v_new[:, 0].to(cache.v.dtype)
+    kv_pos = torch.arange(cache.k.shape[1], device=x.device)
+    k = _repeat_kv(cache.k.to(dt), cfg.q_per_kv)
+    v = _repeat_kv(cache.v.to(dt), cfg.q_per_kv)
+    scale = 1.0 / math.sqrt(dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = s.to(_F32)
+    valid = kv_pos <= idx
+    if cfg.sliding_window > 0:
+        valid &= idx - kv_pos < cfg.sliding_window
+    s = torch.where(valid[None, None, None, :], s, NEG)
+    probs = torch.softmax(s, dim=-1).to(dt)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    out = out.reshape(B, 1, H * dh) @ p["wo"].to(dt)
+    return out, cache._replace(index=idx + 1)

@@ -1,0 +1,244 @@
+"""Model facade: forward / prefill / decode_step over a decode state.
+
+The decode state holds one cache per layer (a list; the reference stacks
+them on a leading L axis for its ``lax.scan``), the shared-attention site
+caches of a hybrid, and the encoder's cross K/V of an encoder-decoder. The
+reference's ``lax.cond`` on a layer's shared-attention flag is a Python
+branch here. Attention caches are written in place, so a decode step
+updates the state it is given and returns it with the cursors advanced.
+
+Every row of a state is at the same position ``step`` (bucketed serving);
+per-row cursors (``write_slot``, ``prefill(state=, slot=)``) belong to the
+continuous-batching engine, which is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import attention, layers, mla, rwkv, ssm, transformer
+from .transformer import apply_channel, encode
+
+_F32 = torch.float32
+
+
+class DecodeState(NamedTuple):
+    layer: List[Any]          # per-layer caches (KVCache / MLACache / ...)
+    shared: Optional[List[attention.KVCache]]   # per-site caches (zamba2)
+    cross: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    #                           (enc_out, K (L,B,S_enc,Hkv,dh), V) (whisper)
+    step: int                 # sequence cursor shared by every row
+
+
+# ------------------------------------------------------------ cache builders
+def _layer_cache(cfg, batch: int, max_seq: int, dtype, device):
+    """One layer's decode cache for this config's mixer."""
+    if cfg.mixer == "attn":
+        if cfg.mla:
+            return mla.init_cache(cfg, batch, max_seq, dtype, device)
+        return attention.init_cache(cfg, batch, max_seq, dtype, device)
+    if cfg.mixer == "mamba2":
+        return ssm.init_cache(cfg, batch, dtype, device)
+    if cfg.mixer == "rwkv6":
+        return rwkv.init_cache(cfg, batch, dtype, device)
+    raise ValueError(cfg.mixer)
+
+
+def init_decode_state(cfg, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, device=None) -> DecodeState:
+    """A fresh decode cache pool, every row at position 0."""
+    layer = [_layer_cache(cfg, batch, max_seq, dtype, device)
+             for _ in range(cfg.n_layers)]
+    shared = None
+    if cfg.shared_attn_every > 0:
+        shared = [attention.init_cache(cfg, batch, max_seq, dtype, device)
+                  for _ in range(cfg.attn_sites)]
+    cross = None
+    if cfg.enc_dec:
+        dt = layers.dtype_of(cfg.compute_dtype)
+        Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        z = dict(dtype=dt, device=device)
+        cross = (
+            torch.zeros((batch, cfg.enc_seq, cfg.d_model), **z),
+            torch.zeros((cfg.n_layers, batch, cfg.enc_seq, Hkv, dh), **z),
+            torch.zeros((cfg.n_layers, batch, cfg.enc_seq, Hkv, dh), **z),
+        )
+    return DecodeState(layer=layer, shared=shared, cross=cross, step=0)
+
+
+def _site(cfg, i: int) -> int:
+    """Index of the shared-attention site after layer ``i``."""
+    return (i + 1) // cfg.shared_attn_every - 1
+
+
+# ----------------------------------------------------------------- decode
+def _mixer_decode(cfg, bp, x, cache):
+    if cfg.mixer == "attn":
+        if cfg.mla:
+            return mla.mla_decode(cfg, bp["mla"], x, cache)
+        return attention.attn_decode(cfg, bp["attn"], x, cache,
+                                     use_rope=cfg.use_rope)
+    if cfg.mixer == "mamba2":
+        return ssm.ssm_decode(cfg, bp["ssm"], x, cache)
+    if cfg.mixer == "rwkv6":
+        return rwkv.tmix_decode(cfg, bp["tmix"], x, cache)
+    raise ValueError(cfg.mixer)
+
+
+def _cross_decode(cfg, bp, x, k, v):
+    """Cross-attention against precomputed encoder K/V (whisper decode)."""
+    dt = x.dtype
+    B = x.shape[0]
+    H, dh = cfg.n_heads, cfg.head_dim
+    p = bp["xattn"]
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, H, dh)
+    kk = attention._repeat_kv(k.to(dt), cfg.q_per_kv)
+    vv = attention._repeat_kv(v.to(dt), cfg.q_per_kv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(dh)
+    probs = torch.softmax(s.to(_F32), -1).to(dt)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    return out.reshape(B, 1, H * dh) @ p["wo"].to(dt)
+
+
+def decode_step(cfg, params, token: torch.Tensor,
+                state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
+    """One decode step. token: (B, 1) int. Returns (logits (B, 1, V) fp32,
+    the state advanced by one position)."""
+    dt = layers.dtype_of(cfg.compute_dtype)
+    x = params["embed"]["tok"].to(dt)[token]                 # (B,1,D)
+    if cfg.enc_dec:
+        pos_emb = layers.sinusoidal_positions(cfg.max_seq, cfg.d_model,
+                                              x.device)
+        x = x + pos_emb[state.step:state.step + 1].to(dt)[None]
+    layer_new = []
+    shared = list(state.shared) if state.shared is not None else None
+    for i in range(cfg.n_layers):
+        bp = transformer.layer(params["blocks"], i)
+        cache = state.layer[i]
+        h, cache = _mixer_decode(cfg, bp,
+                                 layers.apply_norm(cfg, x, bp["norm1"]),
+                                 cache)
+        x = x + h
+        if transformer.shared_site(cfg, i):
+            site = _site(cfg, i)
+            # all sites share the same write index = step
+            sc = shared[site]._replace(index=state.step)
+            h2, shared[site] = attention.attn_decode(
+                cfg.replace(mixer="attn"), params["shared_attn"],
+                layers.apply_norm(cfg, x, params["shared_norm"]), sc,
+                use_rope=cfg.use_rope)
+            x = x + h2
+        if state.cross is not None:
+            _, ck, cv = state.cross
+            x = x + _cross_decode(
+                cfg, bp, layers.apply_norm(cfg, x, bp["norm_x"]), ck[i],
+                cv[i])
+        h = layers.apply_norm(cfg, x, bp["norm2"])
+        if cfg.mlp == "rwkv6_cmix":
+            h, cache = rwkv.cmix_decode(cfg, bp["cmix"], h, cache)
+        else:
+            h, _ = apply_channel(cfg, params, bp, h, i)
+        x = x + h
+        layer_new.append(cache)
+    x = layers.apply_norm(cfg, x, params["final_norm"])
+    logits = layers.logits_from_hidden(cfg, params, x)
+    return logits, DecodeState(layer=layer_new, shared=shared,
+                               cross=state.cross, step=state.step + 1)
+
+
+# ----------------------------------------------------------------- prefill
+def _fill_attn(cfg, p_attn, x_norm, cache, positions):
+    """Compute the prompt's K/V (roped K) and write them into cache[:, :S]."""
+    dt = x_norm.dtype
+    B, S, _ = x_norm.shape
+    k = (x_norm @ p_attn["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    v = (x_norm @ p_attn["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    if cfg.use_rope:
+        k = layers.apply_rope(k, positions[None], cfg.rope_theta)
+    cache.k[:, :S] = k.to(cache.k.dtype)
+    cache.v[:, :S] = v.to(cache.v.dtype)
+    return cache._replace(index=S)
+
+
+def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,
+            vision_embeds=None, audio_frames=None,
+            ) -> Tuple[torch.Tensor, DecodeState]:
+    """Run the full prompt, returning last-position logits (B, 1, V) and the
+    decode state. Attention caches hold the prompt's K/V; recurrent mixers
+    keep their end-of-prompt state."""
+    dt = layers.dtype_of(cfg.compute_dtype)
+    B = tokens.shape[0]
+    dev = tokens.device
+    x = transformer.embed(cfg, params, tokens, vision_embeds)
+    S = x.shape[1]
+    positions = torch.arange(S, device=dev)
+    state = init_decode_state(cfg, B, max_seq, dt, dev)
+    enc_out = cross = None
+    if cfg.enc_dec:
+        enc_out = encode(cfg, params, audio_frames)
+        x = x + layers.sinusoidal_positions(S, cfg.d_model, dev).to(dt)[None]
+        Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        xa = params["blocks"]["xattn"]
+        ck = torch.stack([(enc_out @ xa["wk"][i].to(dt)).reshape(
+            B, cfg.enc_seq, Hkv, dh) for i in range(cfg.n_layers)])
+        cv = torch.stack([(enc_out @ xa["wv"][i].to(dt)).reshape(
+            B, cfg.enc_seq, Hkv, dh) for i in range(cfg.n_layers)])
+        cross = (enc_out, ck, cv)
+
+    layer_new = []
+    shared = state.shared
+    for i in range(cfg.n_layers):
+        bp = transformer.layer(params["blocks"], i)
+        cache = state.layer[i]
+        h_in = layers.apply_norm(cfg, x, bp["norm1"])
+        if cfg.mixer == "attn":
+            if cfg.mla:
+                h = mla.mla_apply(cfg, bp["mla"], h_in, positions)
+                c_kv, k_rope = mla.latent_kv(cfg, bp["mla"], h_in, positions)
+                cache.c_kv[:, :S] = c_kv.to(cache.c_kv.dtype)
+                cache.k_rope[:, :S] = k_rope.to(cache.k_rope.dtype)
+                cache = cache._replace(index=S)
+            else:
+                h = attention.attn_apply(cfg, bp["attn"], h_in, positions,
+                                         use_rope=cfg.use_rope)
+                cache = _fill_attn(cfg, bp["attn"], h_in, cache, positions)
+        elif cfg.mixer == "mamba2":
+            h, cache = ssm.ssm_apply(cfg, bp["ssm"], h_in, return_cache=True)
+        elif cfg.mixer == "rwkv6":
+            h, wkv = rwkv.tmix_apply(cfg, bp["tmix"], h_in,
+                                     return_state=True)
+            cache = cache._replace(
+                shift_tmix=h_in[:, -1].to(cache.shift_tmix.dtype), wkv=wkv,
+                index=S)
+        else:
+            raise ValueError(cfg.mixer)
+        x = x + h
+        if transformer.shared_site(cfg, i):
+            scfg = cfg.replace(mixer="attn")
+            site = _site(cfg, i)
+            xn = layers.apply_norm(cfg, x, params["shared_norm"])
+            x = x + attention.attn_apply(scfg, params["shared_attn"], xn,
+                                         positions, use_rope=cfg.use_rope)
+            shared[site] = _fill_attn(scfg, params["shared_attn"], xn,
+                                      shared[site], positions)
+        if cross is not None:
+            x = x + attention.attn_apply(
+                cfg, bp["xattn"], layers.apply_norm(cfg, x, bp["norm_x"]),
+                positions, causal=False, kv_source=enc_out, use_rope=False)
+        h_in2 = layers.apply_norm(cfg, x, bp["norm2"])
+        if cfg.mlp == "rwkv6_cmix":
+            h2 = rwkv.cmix_apply(cfg, bp["cmix"], h_in2)
+            cache = cache._replace(
+                shift_cmix=h_in2[:, -1].to(cache.shift_cmix.dtype))
+        else:
+            h2, _ = apply_channel(cfg, params, bp, h_in2, i)
+        x = x + h2
+        layer_new.append(cache)
+    x = layers.apply_norm(cfg, x, params["final_norm"])
+    logits = layers.logits_from_hidden(cfg, params, x[:, -1:])
+    return logits, DecodeState(layer=layer_new, shared=shared, cross=cross,
+                               step=S)

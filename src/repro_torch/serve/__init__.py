@@ -1,6 +1,19 @@
-"""Serving substrate of the port: partial STKDE answers so far (the
-language-model ``ServingEngine`` of the reference arrives with the LM
-stack)."""
-from .engine import PartialGridAnswer, stkde_partial_answer
+"""Serving substrate of the port: the bucketed language-model engine and
+partial STKDE answers from a progress journal."""
+from .engine import (
+    EngineConfig,
+    PartialGridAnswer,
+    Request,
+    RequestResult,
+    ServingEngine,
+    cache_bytes,
+    make_prefill,
+    make_serve_step,
+    stkde_partial_answer,
+)
 
-__all__ = ["PartialGridAnswer", "stkde_partial_answer"]
+__all__ = [
+    "ServingEngine", "EngineConfig", "Request", "RequestResult",
+    "make_serve_step", "make_prefill", "cache_bytes", "PartialGridAnswer",
+    "stkde_partial_answer",
+]

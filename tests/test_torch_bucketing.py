@@ -1,6 +1,9 @@
-"""Port vs reference: bucket arrays are bit-identical."""
+"""Port vs reference: bucket arrays are bit-identical, from the host's numpy
+bucketing and from the torch bucketing on a tensor's device."""
 import numpy as np
 import pytest
+import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import Domain as RefDomain
 from repro.core import bucketing as ref_bucketing
@@ -78,3 +81,106 @@ def test_prepare_tiles_padding_matches_reference_arithmetic(chunk):
     np.testing.assert_array_equal(b.valid[..., :raw.cap], raw.valid)
     assert not b.valid[..., raw.cap:].any()
     assert not b.points[..., raw.cap:, :].any()
+
+
+# ------------------------------------------ torch bucketing on the device
+def _assert_same(got, want):
+    """A torch ``Buckets`` holds exactly the reference's numpy arrays."""
+    assert isinstance(got.points, torch.Tensor)
+    assert got.points.dtype == torch.float32
+    assert got.valid.dtype == torch.bool and got.counts.dtype == torch.int64
+    assert got.cap == want.cap and got.tile == tuple(want.tile)
+    assert got.mode == want.mode and got.ntiles == tuple(want.ntiles)
+    assert got.replication_factor == want.replication_factor
+    np.testing.assert_array_equal(got.points.numpy(), want.points)
+    np.testing.assert_array_equal(got.valid.numpy(), want.valid)
+    np.testing.assert_array_equal(got.counts.numpy(), want.counts)
+
+
+@pytest.mark.parametrize("mode", ["home", "overlap"])
+@pytest.mark.parametrize("grid,hs,ht,tile", TILE_CASES)
+def test_torch_buckets_bit_identical(grid, hs, ht, tile, mode):
+    ref, dom, pts = _case(grid, hs, ht)
+    want = getattr(ref_bucketing, f"bucket_points_{mode}")(pts, ref, tile)
+    got = getattr(bucketing, f"bucket_points_{mode}")(
+        torch.from_numpy(pts), dom, tile)
+    _assert_same(got, want)
+
+
+@settings(max_examples=15, deadline=None)
+@given(
+    gx=st.floats(4.0, 40.0), gy=st.floats(4.0, 40.0), gt=st.floats(2.0, 20.0),
+    sres=st.floats(0.3, 2.0), tres=st.floats(0.3, 2.0),
+    hs=st.floats(0.2, 6.0), ht=st.floats(0.2, 4.0),
+    ox=st.floats(-50.0, 50.0), ot=st.floats(-10.0, 10.0),
+    bx=st.integers(1, 4), bt=st.integers(1, 3),
+    n=st.integers(1, 300), seed=st.integers(0, 10_000),
+)
+def test_property_torch_buckets_equal_reference(gx, gy, gt, sres, tres, hs,
+                                                ht, ox, ot, bx, bt, n,
+                                                seed):
+    """Random domains, non-unit resolutions and origins, tiles of 8..32
+    voxels, and points spread past the domain on every side (their voxels
+    are clipped) and on the domain's edges and voxel faces."""
+    ref = RefDomain(gx=gx, gy=gy, gt=gt, sres=sres, tres=tres, hs=hs,
+                    ht=ht, ox=ox, oy=-ox / 2, ot=ot)
+    dom = convert.domain_from_reference(ref)
+    rng = np.random.default_rng(seed)
+    lo = np.array([ref.ox, ref.oy, ref.ot])
+    size = np.array([gx, gy, gt])
+    pts = lo + rng.uniform(-0.2, 1.2, (n, 3)) * size
+    edges = np.stack([lo, lo + size,
+                      lo + np.floor(rng.uniform(0, 1, 3) * size / [
+                          sres, sres, tres]) * [sres, sres, tres]])
+    pts = np.concatenate([pts, edges]).astype(np.float32)
+    tile = (8 * bx, 8 * bx, 4 * bt)
+    for mode in ("home", "overlap"):
+        want = getattr(ref_bucketing, f"bucket_points_{mode}")(pts, ref, tile)
+        got = getattr(bucketing, f"bucket_points_{mode}")(
+            torch.from_numpy(pts), dom, tile)
+        _assert_same(got, want)
+    np.testing.assert_array_equal(
+        bucketing._point_voxels_torch(torch.from_numpy(pts), dom).numpy(),
+        ref_bucketing._point_voxels_np(pts, ref))
+
+
+def test_torch_buckets_with_empty_tiles_and_a_given_cap():
+    """All points in one corner: most tiles are empty (count 0, no valid
+    slot); a cap larger than the load is kept as given."""
+    ref = RefDomain(gx=64.0, gy=64.0, gt=16.0, sres=1.0, tres=1.0, hs=2.0,
+                    ht=1.0)
+    dom = convert.domain_from_reference(ref)
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(0.0, 6.0, (250, 3)).astype(np.float32)
+    for mode in ("home", "overlap"):
+        for cap in (None, 400):
+            want = getattr(ref_bucketing, f"bucket_points_{mode}")(
+                pts, ref, (8, 8, 4), cap=cap)
+            got = getattr(bucketing, f"bucket_points_{mode}")(
+                torch.from_numpy(pts), dom, (8, 8, 4), cap=cap)
+            _assert_same(got, want)
+            assert int((got.counts == 0).sum()) > got.counts.numel() // 2
+            if cap is not None:
+                assert got.cap == cap
+
+
+@pytest.mark.parametrize("mode", ["home", "overlap"])
+def test_torch_cap_too_small_raises(mode):
+    ref, dom, pts = _case((32, 32, 16), 4.0, 1.0)
+    with pytest.raises(ValueError, match="bucket capacity"):
+        getattr(bucketing, f"bucket_points_{mode}")(
+            torch.from_numpy(pts), dom, (16, 16, 8), cap=8)
+
+
+@pytest.mark.parametrize("chunk", [8, 64, 256])
+def test_prepare_tiles_on_a_tensor_equals_the_host(chunk):
+    """The tile path's device preparation (bucket + pad on the tensor's
+    device) gives the host preparation's arrays and chunk."""
+    ref, dom, pts = _case((33, 25, 17), 3.0, 2.0)
+    want, want_chunk = ops.prepare_tiles(pts, dom, (8, 8, 8), chunk=chunk)
+    got, got_chunk = ops.prepare_tiles(torch.from_numpy(pts), dom, (8, 8, 8),
+                                       chunk=chunk)
+    assert (got.cap, got_chunk) == (want.cap, want_chunk)
+    np.testing.assert_array_equal(got.points.numpy(), want.points)
+    np.testing.assert_array_equal(got.valid.numpy(), want.valid)
+    np.testing.assert_array_equal(got.counts.numpy(), want.counts)

@@ -415,6 +415,49 @@ def test_dd_lpt_batches_cut_to_used_prefix():
     assert batches == [(0, 1, 9), (1, 2, 7), (3, 4, 5)]
 
 
+def _dd_lpt_host_loop(pts, dom, mesh, axes, tile=None):
+    """DD-LPT's layout as the port built it on the host before its buckets
+    moved to the device: numpy overlap buckets, a padded (P, k, cap, 3)
+    array filled tile by tile in LPT order."""
+    from repro_torch.core import bucketing
+    from repro_torch.distributed import partition
+
+    P = int(np.prod([mesh.shape[a] for a in axes]))
+    tile = tile or bucketing.default_tile(dom)
+    b = bucketing.bucket_points_overlap(pts, dom, tile)
+    assign = partition.lpt_assign(b.counts.reshape(-1).astype(np.float64), P)
+    k = max(len(t) for t in assign.tiles_of_device)
+    dpts = np.full((P, k, b.cap, 3), sd.PARK, dtype=np.float32)
+    dval = np.zeros((P, k, b.cap), dtype=np.float32)
+    dpos = np.zeros((P, k, 3), dtype=np.int32)
+    for p, tiles in enumerate(assign.tiles_of_device):
+        for s, t in enumerate(tiles):
+            ti, tj, tk = np.unravel_index(t, b.ntiles)
+            dpts[p, s] = b.points.reshape(-1, b.cap, 3)[t]
+            dval[p, s] = b.valid.reshape(-1, b.cap)[t]
+            dpos[p, s] = (ti * tile[0], tj * tile[1], tk * tile[2])
+    ctx = {"tile": tile, "k": k, "cap": b.cap, "ntiles": b.ntiles}
+    return (dpts, dval, dpos), ctx
+
+
+@pytest.mark.parametrize("case,multi_pod,tile", [
+    ("all", False, None), ("pad", False, None), ("small", False, None),
+    ("heavy", False, (16, 16, 8)), ("nocomm", True, None),
+])
+def test_prepare_dd_lpt_equals_the_host_loop(case, multi_pod, tile):
+    """Bucketing on the mesh's device and one gather through the slot table
+    give the layout the host loop gave, bit for bit."""
+    dom, pts = _heavy() if case == "heavy" else _case(case)
+    mesh = _host(multi_pod=multi_pod)
+    args, ctx = sd.prepare_dd_lpt(pts, dom, mesh, AXES2, tile=tile)
+    want, want_ctx = _dd_lpt_host_loop(pts, dom, mesh, AXES2, tile)
+    assert ctx == want_ctx
+    for got, w in zip(args, want):
+        assert got.device == mesh.first_device and got.dtype == {
+            np.float32: torch.float32, np.int32: torch.int32}[w.dtype.type]
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
 # ------------------------------------------------- collectives=False probes
 _PROBED = {
     "pd": (sd.prepare_pd, sd.build_pd, AXES2),

@@ -38,7 +38,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
-    assert n >= 34, proc.stdout
+    assert n >= 50, proc.stdout
 
 
 def test_distributed_modules_stand_alone():
@@ -50,6 +50,29 @@ want = {"repro_torch.distributed", "repro_torch.distributed.mesh",
         "repro_torch.distributed.collectives",
         "repro_torch.distributed.stkde_dist",
         "repro_torch.distributed.partition", "repro_torch.core.coloring"}
+print("MISSING", sorted(want - set(names)))
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True, text=True,
+        timeout=300, env={"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout and "MISSING []" in proc.stdout, \
+        proc.stdout
+
+
+def test_lm_modules_stand_alone():
+    """The language models, their configs and the serving engine are
+    imported with jax unimportable, and bring in neither jax nor the
+    reference."""
+    probe = _PROBE + r"""
+want = {"repro_torch.models", "repro_torch.models.config",
+        "repro_torch.models.layers", "repro_torch.models.attention",
+        "repro_torch.models.mla", "repro_torch.models.moe",
+        "repro_torch.models.ssm", "repro_torch.models.rwkv",
+        "repro_torch.models.transformer", "repro_torch.models.model",
+        "repro_torch.configs", "repro_torch.configs.lm_archs",
+        "repro_torch.serve", "repro_torch.serve.engine"}
 print("MISSING", sorted(want - set(names)))
 """
     proc = subprocess.run(
