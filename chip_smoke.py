@@ -33,8 +33,17 @@ query and serves a partial answer from a journal. ``lm_serve`` runs the ten
 ``reduced`` language models on the card against the CPU, then the full
 ``smollm-360m`` through the bucketed ``ServingEngine`` (8 greedy requests,
 fp32 against a teacher-forced ``forward``, bf16 with its tokens per
-second). The tile branch buckets its points on the card; its buckets are
-held bit for bit against the host's numpy bucketing at both full-size rows.
+second) and through the slot-swap continuous engine (the same prompts,
+``max_new`` alternating 8 and 32: its tokens against the bucketed path's,
+its swaps and slot occupancy), and the ``reduced`` MLA and rwkv6 configs
+continuous against bucketed. ``lm_train`` takes one train step of each
+``reduced`` config on the card against the CPU, trains the full
+``smollm-360m`` for 20 steps through ``repro_torch.launch.train.main``
+(async checkpoints every 10), then kills the run after step 10 and resumes
+it: the step-10 checkpoint restored bit for bit, the resumed step-20 loss
+against the uninterrupted one's. The tile branch buckets its points on the
+card; its buckets are held bit for bit against the host's numpy bucketing at
+both full-size rows.
 
 Every phase prints one JSON line. Any failure exits non-zero; without a CUDA
 device the script exits non-zero before it prints a result. The last line is
@@ -49,6 +58,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1515,6 +1525,7 @@ LM_TOL = dict(rtol=1e-4, atol_rel_to_max=1e-5)
 BF16_DECODE_BAR = 0.05
 LM_PROMPTS = (64, 64, 64, 64, 128, 128, 128, 128)
 LM_MAX_NEW = 32
+LM_CONTINUOUS_MAX_NEW = (8, 32) * 4
 
 
 def lm_inputs(cfg, B: int, S: int, seed: int):
@@ -1659,6 +1670,82 @@ def serve_smollm(cfg, params, prompts) -> dict:
                                for r in results.values())}}
 
 
+def serve_continuous(cfg, params, prompts, max_new) -> dict:
+    """``prompts`` through the engine on the card twice, bucketed and
+    slot-swap continuous (``max_batch`` 4, ``max_seq`` 256), request ``uid``
+    asking for ``max_new[uid]`` tokens: each path's tokens, stats and serve
+    gauges, and whether the greedy tokens agree for every uid."""
+    from repro_torch.obs import metrics
+    from repro_torch.serve import EngineConfig, ServingEngine
+
+    out = {}
+    for path in ("bucketed", "continuous"):
+        metrics.reset()
+        eng = ServingEngine(cfg, params, EngineConfig(
+            continuous_batching=path == "continuous", max_batch=4,
+            max_seq=256))
+        for uid, p in enumerate(prompts):
+            eng.submit(uid, p, max_new=max_new[uid])
+        t0 = time.perf_counter()
+        results = eng.run_detailed()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = metrics.export()["gauges"]
+        st = eng.last_stats
+        out[path] = {
+            "tokens": {u: r.tokens.tolist() for u, r in results.items()},
+            "fields": {
+                "mode": st["mode"], "wall_s": wall,
+                "n_tokens": st["n_tokens"],
+                "decode_steps": st["decode_steps"], "swaps": st["swaps"],
+                "serve.tokens_per_s": g.get("serve.tokens_per_s"),
+                "serve.decode_tokens_per_s": g.get(
+                    "serve.decode_tokens_per_s"),
+                # the gauge holds the last loop's value (0 once the queue
+                # has drained); the mean over decode steps is beside it
+                "serve.slot_occupancy": g.get("serve.slot_occupancy"),
+                "mean_slot_occupancy": (st["active_slot_steps"]
+                                        / max(st["slot_steps"], 1)),
+                "serve.slot_idle_frac": g.get("serve.slot_idle_frac"),
+                "all_ok": all(r.ok and not r.degraded
+                              for r in results.values())}}
+    b, c = out["bucketed"]["tokens"], out["continuous"]["tokens"]
+    return {"bucketed": out["bucketed"]["fields"],
+            "continuous": out["continuous"]["fields"],
+            "uids_differing": sorted(u for u in b if b[u] != c.get(u)),
+            "tokens_equal": b == c}
+
+
+def reduced_continuous_on_card() -> list:
+    """The ``reduced`` MLA (deepseek-v2-lite) and rwkv6 configs served
+    continuous and bucketed on the card, 8 mixed-length requests. The MoE
+    of the MLA config runs with a capacity that drops no token: the capacity
+    depends on how many tokens share a call, so a prompt prefilled alone
+    and in a bucket may otherwise drop different ones (ROADMAP §C.4)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import init_params
+
+    rows = []
+    for name in ("deepseek-v2-lite-16b", "rwkv6-3b"):
+        cfg = reduced(ARCHS[name])
+        if cfg.mlp == "moe":
+            cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+        params = init_params(cfg, device="cuda", seed=0)
+        rng = np.random.default_rng(0)
+        lens = [8, 12, 8, 16, 12, 9, 8, 16]
+        prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+        res = serve_continuous(cfg, params, prompts,
+                               [3 + (u % 3) * 3 for u in range(8)])
+        rows.append({"arch": cfg.name,
+                     "capacity_factor": cfg.capacity_factor,
+                     "swaps": res["continuous"]["swaps"],
+                     "tokens_equal": res["tokens_equal"],
+                     "uids_differing": res["uids_differing"],
+                     "ok": (res["tokens_equal"]
+                            and res["continuous"]["all_ok"])})
+    return rows
+
+
 def phase_lm_serve(dev: dict) -> None:
     """The language-model stack on the card (no kernel of its own: the
     reference's attention is jnp, ported as plain ops). The ten ``reduced``
@@ -1693,15 +1780,25 @@ def phase_lm_serve(dev: dict) -> None:
             cfg, params, prompts[-1], steps=16)
         runs[dtype] = fields
     peak = torch.cuda.max_memory_allocated()
+    # slot-swap continuous batching: the same prompts, max_new alternating
+    # 8 and 32 so that slots free up mid-decode, against the bucketed path
+    t_cont = time.perf_counter()
+    cont = serve_continuous(full.replace(compute_dtype="float32"), params,
+                            prompts, LM_CONTINUOUS_MAX_NEW)
     del params
     torch.cuda.empty_cache()
+    cont["reduced"] = reduced_continuous_on_card()
+    cont["seconds"] = time.perf_counter() - t_cont
     seconds = time.perf_counter() - t0
     fp32, bf16 = runs["float32"], runs[full.compute_dtype]
     ok = (all(r["ok"] and r["finite"] for r in reduced_rows)
           and all(r["all_ok"] and r["all_full_length"] for r in runs.values())
           and fp32["teacher_forced"]["ok"]
           and fp32["decode_vs_forward"]["max_abs_err"] < 5e-3
-          and bf16["decode_vs_forward"]["share"] < BF16_DECODE_BAR)
+          and bf16["decode_vs_forward"]["share"] < BF16_DECODE_BAR
+          and cont["tokens_equal"] and cont["continuous"]["swaps"] > 0
+          and cont["continuous"]["all_ok"] and cont["bucketed"]["all_ok"]
+          and all(r["ok"] for r in cont["reduced"]))
     emit("lm_serve", nvidia_smi=dev["nvidia_smi"], reduced=reduced_rows,
          reduced_tolerance={**LM_TOL, "why": "fp32 on the card against "
                             "fp32 on the CPU, same weights; atol a share of "
@@ -1718,9 +1815,225 @@ def phase_lm_serve(dev: dict) -> None:
                  "bars": {"fp32_decode_vs_forward_abs": 5e-3,
                           "bf16_decode_vs_forward_share":
                               BF16_DECODE_BAR}},
+         continuous={**cont, "max_new": list(LM_CONTINUOUS_MAX_NEW)},
          seconds=seconds)
     if not ok:
         fail("lm_serve: a check failed (see the lm_serve line)")
+
+
+# ------------------------------------------------------------ lm_train
+# one train step, card against CPU, same weights and batch: fp32 with TF32
+# off on both (PyTorch's default), so only the order of additions differs
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-3
+# updated parameters, as a share of the step's learning rate: Adam's first
+# step moves an element by lr * g / (|g| + eps), so a rounding difference
+# that flips the sign of a gradient element a few ulps from zero moves it by
+# up to 2 lr; the bar admits a quarter of that
+TRAIN_PARAM_ATOL_LR = 0.5
+# the resumed run's step-20 loss against the uninterrupted run's: both start
+# step 11 from the same bits, but the card adds the embedding's gradient with
+# atomics, so the runs may part in the last bits (compared, not assumed)
+RESUME_LOSS_RTOL = 1e-3
+TRAIN_ARGS = ["--arch", "smollm-360m", "--steps", "20", "--batch", "8",
+              "--seq", "256", "--ckpt-every", "10"]
+
+
+def train_batch(cfg, seed: int, batch: int = 2, seq: int = 16) -> dict:
+    """A ``SyntheticLM`` batch (and stub frontend inputs) as CPU tensors."""
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    b = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                               global_batch=batch)).batch_at(seed)
+    out = {k: torch.from_numpy(v) for k, v in b.items()}
+    _, kw = lm_inputs(cfg, batch, seq, seed)
+    return {**out, **kw}
+
+
+def reduced_train_on_card() -> list:
+    """One ``make_train_step`` step of each of the ten ``reduced`` configs on
+    the card and on the CPU, from the same seeded weights and batch."""
+    import math
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import leaves, tree_map
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+    lr = float(opt.lr_at(ocfg, 1))
+    rows = []
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        step = make_train_step(cfg, ocfg)
+        cpu_params = init_params(cfg, device="cpu", seed=0)
+        b = train_batch(cfg, seed=0)
+        out = {}
+        for where in ("cpu", "cuda"):
+            params = tree_map(lambda a: a.to(where), cpu_params)
+            p, _, m = step(params, opt.init(params),
+                           {k: v.to(where) for k, v in b.items()})
+            out[where] = (p, {k: float(v) for k, v in m.items()})
+        (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+        dp = max(float((a.cpu() - c).abs().max())
+                 for a, c in zip(leaves(pg), leaves(pc)))
+        loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+        gn_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+        rows.append({"arch": cfg.name, "loss_cpu": mc["loss"],
+                     "loss_card": mg["loss"], "loss_rel_err": loss_rel,
+                     "grad_norm_rel_err": gn_rel,
+                     "params_max_abs_over_lr": dp / lr,
+                     "ok": (loss_rel <= TRAIN_LOSS_RTOL
+                            and gn_rel <= TRAIN_GNORM_RTOL
+                            and dp <= TRAIN_PARAM_ATOL_LR * lr
+                            and math.isfinite(mg["loss"]))})
+    return rows
+
+
+CKPT_SPANS = ("ckpt.save", "ckpt.snapshot", "ckpt.serialize", "ckpt.write",
+              "ckpt.verify", "ckpt.restore", "ckpt.decode", "ckpt.place")
+
+
+def train_spans() -> dict:
+    """The ``train.step`` spans (step, loss, seconds) and the checkpoint
+    spans the port's tracer holds (seconds, on the writer thread or not),
+    then clears the tracer."""
+    from repro_torch.obs import trace
+
+    tr = trace.get_tracer()
+    main = threading.main_thread().ident
+    steps = [(int(sp.attrs["step"]), sp.attrs.get("loss"), sp.duration_s)
+             for sp in tr.spans("train.step")]
+    ckpt = {name: [{"s": sp.duration_s, "async": sp.tid != main,
+                    **{k: v for k, v in sp.attrs.items() if k == "step"}}
+                   for sp in tr.spans(name)] for name in CKPT_SPANS}
+    trace.reset()
+    return {"steps": steps, "ckpt": ckpt}
+
+
+def restored_bits_equal(tree, ckpt_dir: str, step: int) -> dict:
+    """A restored ``tree`` against the arrays checkpoint ``step``'s
+    ``.npz`` holds, bit for bit, leaf by leaf; and whether every leaf is on
+    the card."""
+    from repro_torch.train import checkpoint
+
+    flat = checkpoint._flatten(tree)
+    path = str(pathlib.Path(ckpt_dir) / f"step_{step:08d}" / "arrays.npz")
+    saved = checkpoint._npz_arrays(path, checkpoint._read(path),
+                                   check_members=False)
+    equal, on_card = 0, 0
+    for k, t in flat.items():
+        on_card += int(t.is_cuda)
+        want = torch.from_numpy(saved[k.replace("/", "__")]).to(t.device)
+        equal += int(t.dtype == want.dtype and torch.equal(t, want))
+    return {"leaves": len(flat), "bit_equal": equal, "on_card": on_card,
+            "ok": equal == on_card == len(flat)}
+
+
+def phase_lm_train(dev: dict) -> None:
+    """Training on the card (no kernel of its own: plain ops and
+    ``torch.autograd``). (a) One step of each ``reduced`` config, card
+    against CPU. (b) ``smollm-360m`` at full width and depth, fp32, through
+    ``repro_torch.launch.train.main``: 20 steps of 8 x 256 tokens of
+    ``SyntheticLM``, async checkpoints every 10 steps into a temporary
+    directory (removed after). (c) The step-20 checkpoint removed, as if
+    the run had died after step 10: a fresh ``TrainRunner`` from
+    ``launch.train.make_runner`` (what ``main`` runs) resumes from step 10,
+    its restored state is held bit for bit against the checkpoint's
+    arrays, and it runs to 20; its step-20 loss against (b)'s."""
+    import gc
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.obs import trace
+
+    t0 = time.perf_counter()
+    reduced_rows = reduced_train_on_card()
+    t_reduced = time.perf_counter() - t0
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        argv = TRAIN_ARGS + ["--ckpt-dir", ckpt_dir]
+        trace.reset()
+        gc.collect()
+        held_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        summary = launch_train.main(argv)
+        t_full = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        run = train_spans()
+        losses = [loss for _, loss, _ in run["steps"]]
+        step_s = [d for _, _, d in run["steps"]]
+        med = statistics.median(step_s[1:])
+        saved = sorted(os.listdir(ckpt_dir))
+        step10 = next(sv["s"] for sv in run["ckpt"]["ckpt.save"]
+                      if sv["step"] == 10)
+        ckpt_bytes = (pathlib.Path(ckpt_dir) / "step_00000010"
+                      / "arrays.npz").stat().st_size
+
+        # (c) kill after step 10 and resume
+        t2 = time.perf_counter()
+        shutil.rmtree(os.path.join(ckpt_dir, "step_00000020"))
+        runner, batches = launch_train.make_runner(argv)
+        restored = {"step": runner.step, **restored_bits_equal(
+            (runner.params, runner.opt_state), ckpt_dir, 10)}
+        resumed = runner.run(batches)
+        t_resume = time.perf_counter() - t2
+        rerun = train_spans()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    first, last = losses[0], losses[-1]
+    resume_diff = abs(resumed["last_loss"] - last)
+    full = {"args": TRAIN_ARGS, "steps": len(losses), "losses": losses,
+            "first_loss": first, "last_loss": last,
+            "ln_vocab": math.log(49152),
+            "ms_per_step_median_steps_2_20": med * 1e3,
+            # steps 11-20 share the host with the step-10 checkpoint's
+            # writer thread; steps 2-10 have it to themselves
+            "ms_per_step_median_steps_2_10": statistics.median(
+                step_s[1:10]) * 1e3,
+            "step_ms": [d * 1e3 for d in step_s],
+            "tokens_per_s": 8 * 256 / med,
+            "peak_device_bytes": peak,
+            "device_bytes_held_before": held_before,
+            "ckpt_async_write_s_step_10": step10,
+            "ckpt_spans": run["ckpt"], "ckpt_bytes": ckpt_bytes,
+            "checkpoints_on_disk": saved, "summary": summary,
+            "seconds": t_full}
+    resume = {"restored_step_10": restored,
+              "resumed_steps": [s for s, _, _ in rerun["steps"]],
+              "resumed_last_loss": resumed["last_loss"],
+              "uninterrupted_last_loss": last,
+              "abs_diff": resume_diff,
+              "bit_identical": resumed["last_loss"] == last,
+              "rtol": RESUME_LOSS_RTOL,
+              "ckpt_spans": rerun["ckpt"], "seconds": t_resume}
+    ok = (all(r["ok"] for r in reduced_rows)
+          and len(losses) == 20 and all(math.isfinite(v) for v in losses)
+          and abs(first - math.log(49152)) <= 0.5 and last < first
+          and summary["final_step"] == 20
+          and saved == ["step_00000010", "step_00000020"]
+          and restored["ok"] and restored["step"] == 10
+          and resume["resumed_steps"] == list(range(10, 20))
+          and resumed["final_step"] == 20
+          and resume_diff <= RESUME_LOSS_RTOL * abs(last))
+    worst = {k: max(r[k] for r in reduced_rows)
+             for k in ("loss_rel_err", "grad_norm_rel_err",
+                       "params_max_abs_over_lr")}
+    emit("lm_train", nvidia_smi=dev["nvidia_smi"], reduced=reduced_rows,
+         reduced_worst=worst,
+         reduced_tolerance={"loss_rtol": TRAIN_LOSS_RTOL,
+                            "grad_norm_rtol": TRAIN_GNORM_RTOL,
+                            "params_atol_over_lr": TRAIN_PARAM_ATOL_LR},
+         reduced_s=t_reduced, smollm=full, resume=resume,
+         seconds=time.perf_counter() - t0)
+    if not ok:
+        fail("lm_train: a check failed (see the lm_train line)")
 
 
 def main() -> None:
@@ -1739,6 +2052,7 @@ def main() -> None:
     launches += phase_planner(dev)
     launches += phase_degrade(dev)
     phase_lm_serve(dev)
+    phase_lm_train(dev)
     emit("total", seconds=time.perf_counter() - t_start,
          peak_host_rss_bytes=resource.getrusage(
              resource.RUSAGE_SELF).ru_maxrss * 1024)

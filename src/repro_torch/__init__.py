@@ -10,13 +10,20 @@ The port of the ``repro`` package to PyTorch on NVIDIA Hopper. It imports
   kernels     the hand-written CUDA tile kernel, its plain version, its build script
   distributed meshes of shards, their collectives, the seven multi-device
               strategies, LPT placement
-  data        point streams and chunking for the chunked path
+  data        the synthetic token stream of the language models; point
+              streams and chunking for the chunked path
   obs         spans, counters/gauges/histograms, the shared timer, the
               planner's reconciliation
   resilience  typed errors, fault injection, retry, the progress journal,
               the finite-output check, the degrade ladder
-  serve       partial answers from a progress journal
-  convert     state carried across from the reference (domain, bucket arrays)
+  models      the ten language-model architectures (plain PyTorch ops)
+  configs     their configurations and the ``reduced`` smoke variants
+  serve       the language-model serving engine (slot-swap continuous
+              batching, bucketed), partial STKDE answers from a journal
+  train       optimizer, train step, checkpoints, the training runner
+  launch      the train and serve command lines
+  convert     state carried across from the reference (domain, bucket
+              arrays, language-model weights and optimizer moments)
 
 Entry points take ``device=None`` meaning ``"cuda"``; with no CUDA device
 that raises ``KernelUnavailableError``. Pass ``device="cpu"`` to run the

@@ -2,8 +2,8 @@
 
 Nothing here imports the reference: a domain is read by attribute from any
 object that has the ten fields, bucket arrays arrive as numpy arrays (or
-tensors), and language-model parameters as a tree of numpy arrays, so that a
-parity test can hand both packages the same bytes.
+tensors), and language-model parameters and optimizer moments as trees of
+numpy arrays, so that a parity test can hand both packages the same bytes.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .core.geometry import Domain
+from .train.optimizer import OptState
 
 
 def domain_from_reference(dom: Any) -> Domain:
@@ -71,3 +72,17 @@ def lm_params_from_reference(tree: Any, device: DeviceLike = None) -> Any:
     if isinstance(tree, dict):
         return {k: lm_params_from_reference(v, dev) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def opt_state_from_reference(opt_state: Any, device: DeviceLike = None):
+    """The port's ``train.optimizer.OptState`` from the reference's (any
+    object with ``mu``, ``nu``, ``step``; hand the moments over as numpy
+    trees): the same moments, bit for bit, and the step counter as a 0-dim
+    int32 tensor, on ``device`` (``None`` means ``"cuda"``)."""
+    dev = resolve_device(device)
+    return OptState(
+        mu=lm_params_from_reference(opt_state.mu, dev),
+        nu=lm_params_from_reference(opt_state.nu, dev),
+        step=torch.tensor(int(np.asarray(opt_state.step)),
+                          dtype=torch.int32, device=dev),
+    )

@@ -1,4 +1,5 @@
-"""Point sources for chunked STKDE (the LM token stream is not ported yet)."""
-from .pipeline import as_chunks, stkde_stream
+"""Data sources: the synthetic token stream of the language models and the
+point sources of chunked STKDE."""
+from .pipeline import DataConfig, SyntheticLM, as_chunks, stkde_stream
 
-__all__ = ["as_chunks", "stkde_stream"]
+__all__ = ["DataConfig", "SyntheticLM", "as_chunks", "stkde_stream"]

@@ -1,17 +1,22 @@
-"""Point sources for chunked, out-of-core STKDE.
+"""Deterministic data sources: the synthetic token stream of the language
+models, and point sources for chunked, out-of-core STKDE.
 
-``stkde_stream`` yields an instance's points chunk by chunk (each chunk read
-through the ``data.read`` fault site and retried), and ``as_chunks`` turns
-an array or such a stream into the bounded-memory chunk iterator that
-``core.api.stkde_chunked`` consumes. Both are numpy only and yield the same
-chunks as the reference package's, so a journal written by one package names
-the point ranges the other will produce.
+``SyntheticLM`` produces token streams with learnable n-gram structure from
+a counter-based seed: seekable by step (resuming at step N yields exactly
+the batches a run that did not stop would have seen) and shardable by host
+(host h of H draws rows [h::H] of the global batch). ``stkde_stream``
+yields an instance's points chunk by chunk, and ``as_chunks`` turns an array
+or such a stream into the bounded-memory chunk iterator that
+``core.api.stkde_chunked`` consumes. Every read goes through the
+``data.read`` fault site and is retried. All of it is numpy only and gives
+the reference package's batches and chunks bit for bit, so a run or a
+journal of one package names the data the other will produce.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -19,9 +24,70 @@ from ..resilience import RetryPolicy, faults, with_retry
 from ..resilience.errors import ReproValidationError
 
 # transient read faults (dropped shards, storage hiccups) retry quickly;
-# a chunk that cannot be produced after that is a real error
+# a batch or chunk that cannot be produced after that is a real error
 _READ_POLICY = RetryPolicy(max_attempts=4, base_delay_s=0.005,
                            max_delay_s=0.1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    n_host: int = 1
+    host_id: int = 0
+    # markov-chain structure strength (0 = uniform noise, 1 = deterministic)
+    structure: float = 0.8
+
+
+class SyntheticLM:
+    """Order-1 Markov token stream with a fixed random transition table."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        v = min(cfg.vocab, 4096)  # structured sub-vocab
+        self.v = v
+        self.next_tok = rng.integers(0, v, size=(v, 4))
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """Batch for ``step`` (retried through the ``data.read`` fault
+        site — the stream is seekable, so a re-read is exact)."""
+        return with_retry(lambda: self._batch_at(step),
+                          policy=_READ_POLICY, site="data.read")
+
+    def _batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        faults.fault_point("data.read")
+        cfg = self.cfg
+        rows = np.arange(cfg.host_id, cfg.global_batch, cfg.n_host)
+        B = len(rows)
+        # counter-based determinism: seed from (step, row)
+        seqs = np.empty((B, cfg.seq_len + 1), np.int32)
+        for i, r in enumerate(rows):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([cfg.seed, step, int(r)])
+            )
+            toks = np.empty(cfg.seq_len + 1, np.int32)
+            toks[0] = rng.integers(0, self.v)
+            noise = rng.random(cfg.seq_len)
+            branch = rng.integers(0, 4, cfg.seq_len)
+            rand = rng.integers(0, self.v, cfg.seq_len)
+            for t in range(cfg.seq_len):
+                if noise[t] < cfg.structure:
+                    toks[t + 1] = self.next_tok[toks[t], branch[t]]
+                else:
+                    toks[t + 1] = rand[t]
+            seqs[i] = toks
+        return {
+            "tokens": seqs[:, :-1],
+            "labels": seqs[:, 1:],
+        }
+
+    def iter_from(self, step: int) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 def stkde_stream(instance, chunk: int = 100_000, seed: Optional[int] = None):

@@ -1,0 +1,106 @@
+"""End-to-end training entry point.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch smollm-360m --reduced --steps 200 --batch 16 --seq 128 \
+        --ckpt-dir /tmp/run1
+
+Runs on one device: the card unless ``--device`` names another (``cpu``).
+Weights come from ``init_params(seed=0)``, batches from ``SyntheticLM``,
+fault tolerance from ``train.runner`` (auto-resume from ``--ckpt-dir``,
+async checkpoints every ``--ckpt-every`` steps, a final checkpoint on
+SIGTERM or at the end). The reference's ``(data, model)`` mesh over one
+device is a no-op; sharding the model over devices (``--model-axis`` > 1)
+is not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import tempfile
+
+import torch
+
+from .._device import resolve_device
+from ..configs import ARCHS, reduced as reduce_cfg
+from ..data import DataConfig, SyntheticLM
+from ..models import init_params
+from ..train import (
+    OptimizerConfig, RunnerConfig, TrainRunner, make_train_step,
+    optimizer as opt_lib,
+)
+
+
+def make_runner(argv=None):
+    """The ``TrainRunner`` that ``main`` drives and its stream of batches
+    on the run's device, from the command line ``argv``. The runner has
+    already resumed from ``--ckpt-dir`` when that holds a checkpoint; the
+    stream starts at the runner's step."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m", choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-sized same-family config")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, the card)")
+    args = ap.parse_args(argv)
+    if args.model_axis != 1:
+        raise NotImplementedError(
+            "--model-axis > 1 shards the model over devices, which is not "
+            "ported yet (ROADMAP A.13d); train on one device")
+
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    dev = resolve_device(args.device)
+    print(f"[train] arch={cfg.name} device={dev} "
+          f"params~{cfg.param_count() / 1e6:.1f}M")
+
+    params = init_params(cfg, device=dev, seed=0)
+    opt_state = opt_lib.init(params)
+    ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
+                           total_steps=args.steps)
+    step_fn = make_train_step(cfg, ocfg)
+    data = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+    ))
+
+    rcfg = RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                        max_steps=args.steps)
+    runner = TrainRunner(rcfg, step_fn, params, opt_state)
+
+    def batches():
+        s = runner.step
+        while True:
+            b = data.batch_at(s)
+            yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            s += 1
+
+    return runner, batches()
+
+
+def main(argv=None):
+    runner, batches = make_runner(argv)
+    prev = signal.getsignal(signal.SIGTERM)
+    runner.install_preemption_hook()
+    try:
+        summary = runner.run(batches)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    print(f"[train] done: {summary}")
+    hist = runner.metrics_history
+    if hist:
+        print(f"[train] loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}"
+              f" over {len(hist)} steps")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

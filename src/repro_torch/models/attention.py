@@ -22,8 +22,8 @@ NEG = -1e30
 
 class KVCache(NamedTuple):
     """One layer's dense cache. Decode writes into ``k`` / ``v`` in place;
-    ``index`` is the next write position (a Python int: every row of a
-    bucket decodes in lockstep)."""
+    ``index`` is the next write position when every row of a bucket decodes
+    in lockstep (a Python int; per-row decode ignores it)."""
 
     k: torch.Tensor       # (B, S_max, Hkv, dh)
     v: torch.Tensor       # (B, S_max, Hkv, dh)
@@ -165,16 +165,52 @@ def init_cache(cfg, batch: int, max_seq: int, dtype,
                    v=torch.zeros((batch, max_seq, Hkv, dh), **z), index=0)
 
 
+def write_rows(buf: torch.Tensor, positions: torch.Tensor,
+               new: torch.Tensor) -> None:
+    """Write ``new[b]`` into ``buf[b, positions[b]]`` in place, for every row
+    ``b``. A position at or past ``buf.shape[1]`` is dropped, as the
+    reference's ``.at[rows, positions].set(..., mode="drop")`` drops it:
+    ``index_put_`` has no drop mode (an index out of range raises on the CPU
+    and asserts on the card), so such a row writes back what it holds."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    keep = (positions < buf.shape[1]).view((-1,) + (1,) * (new.ndim - 1))
+    at = positions.clamp(max=buf.shape[1] - 1)
+    buf[rows, at] = torch.where(keep, new.to(buf.dtype), buf[rows, at])
+
+
+def decode_mask(kv_len: int, idx, positions: Optional[torch.Tensor],
+                window: int, device) -> torch.Tensor:
+    """Which cache lines a decode step may see, shaped to broadcast over
+    (B, H, 1, S_max) scores: lines ``<= idx`` (every row at the shared
+    cursor ``idx``) or ``<= positions[b]`` (row ``b`` at its own), and
+    within the sliding window when there is one."""
+    kv_pos = torch.arange(kv_len, device=device)
+    cur = (torch.full((1,), idx, device=device) if positions is None
+           else positions)[:, None]                              # (B|1, 1)
+    valid = kv_pos[None, :] <= cur
+    if window > 0:
+        valid &= cur - kv_pos[None, :] < window
+    return valid[:, None, None, :]
+
+
 def attn_decode(
     cfg,
     p: dict,
     x: torch.Tensor,                    # (B, 1, D)
     cache: KVCache,
     use_rope: bool = True,
+    positions: Optional[torch.Tensor] = None,   # (B,) per-row cursors
 ) -> Tuple[torch.Tensor, KVCache]:
-    """One-token decode against a dense KV cache, every row at the shared
-    cursor ``cache.index`` (bucketed serving: all rows in lockstep). The new
-    K/V line is written into the cache in place."""
+    """One-token decode against a dense KV cache; the new K/V line is
+    written into the cache in place.
+
+    With ``positions=None`` every row writes and reads at the shared cursor
+    ``cache.index`` (bucketed serving: all rows in lockstep). With
+    ``positions`` of shape (B,) each row keeps its own sequence position
+    (slot-swap continuous batching, where rows at different depths share
+    one cache pool) and ``cache.index`` is not read; a row at or past the
+    cache's end writes nothing (``write_rows``).
+    """
     dt = x.dtype
     B = x.shape[0]
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -183,21 +219,23 @@ def attn_decode(
     k_new = _split_heads(x @ p["wk"].to(dt), Hkv, dh)
     v_new = _split_heads(x @ p["wv"].to(dt), Hkv, dh)
     if use_rope:
-        pos = torch.full((1, 1), idx, device=x.device)
+        pos = (torch.full((1, 1), idx, device=x.device) if positions is None
+               else positions[:, None])
         q = layers.apply_rope(q, pos, cfg.rope_theta)
         k_new = layers.apply_rope(k_new, pos, cfg.rope_theta)
-    cache.k[:, idx] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, idx] = v_new[:, 0].to(cache.v.dtype)
-    kv_pos = torch.arange(cache.k.shape[1], device=x.device)
+    if positions is None:
+        cache.k[:, idx] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, idx] = v_new[:, 0].to(cache.v.dtype)
+    else:
+        write_rows(cache.k, positions, k_new[:, 0])
+        write_rows(cache.v, positions, v_new[:, 0])
     k = _repeat_kv(cache.k.to(dt), cfg.q_per_kv)
     v = _repeat_kv(cache.v.to(dt), cfg.q_per_kv)
     scale = 1.0 / math.sqrt(dh)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     s = s.to(_F32)
-    valid = kv_pos <= idx
-    if cfg.sliding_window > 0:
-        valid &= idx - kv_pos < cfg.sliding_window
-    s = torch.where(valid[None, None, None, :], s, NEG)
+    s = torch.where(decode_mask(cache.k.shape[1], idx, positions,
+                                cfg.sliding_window, x.device), s, NEG)
     probs = torch.softmax(s, dim=-1).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     out = out.reshape(B, 1, H * dh) @ p["wo"].to(dt)

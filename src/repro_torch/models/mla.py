@@ -13,7 +13,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import layers
-from .attention import NEG
+from .attention import NEG, decode_mask, write_rows
 
 _F32 = torch.float32
 
@@ -40,23 +40,29 @@ def mla_init(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def _batched(positions):
+    """(S,) positions shared across the batch -> (1, S); (B, S) per-row
+    positions as they are."""
+    return positions if positions.ndim == 2 else positions[None]
+
+
 def _project_q(cfg, p, x, positions):
-    """positions: (S,) shared across the batch."""
+    """positions: (S,) shared across the batch, or (B, S) per-row."""
     B, S, _ = x.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dims, cfg.qk_rope_dims
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = layers.apply_rope(q_rope, positions[None], cfg.rope_theta)
+    q_rope = layers.apply_rope(q_rope, _batched(positions), cfg.rope_theta)
     return q_nope, q_rope
 
 
 def latent_kv(cfg, p, x, positions):
     """The cached latents of ``x``: ``c_kv`` (B, S, r) and the roped shared
-    key ``k_rope`` (B, S, dr)."""
+    key ``k_rope`` (B, S, dr); positions (S,) or (B, S)."""
     dt = x.dtype
     c_kv = layers.rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"], cfg.norm_eps)
     k_rope = layers.apply_rope(
-        (x @ p["w_krope"].to(dt))[:, :, None, :], positions[None],
+        (x @ p["w_krope"].to(dt))[:, :, None, :], _batched(positions),
         cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_rope
 
@@ -92,21 +98,29 @@ def init_cache(cfg, batch: int, max_seq: int, dtype,
         index=0)
 
 
-def mla_decode(cfg, p, x, cache: MLACache) -> Tuple[torch.Tensor, MLACache]:
-    """Absorbed-matrix decode: scores and values in latent space, every row
-    at the shared cursor ``cache.index``; the new latent line is written
-    into the cache in place."""
+def mla_decode(cfg, p, x, cache: MLACache,
+               positions=None) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-matrix decode: scores and values in latent space; the new
+    latent line is written into the cache in place. Every row is at the
+    shared cursor ``cache.index``, or, with ``positions`` (B,), at its own
+    (continuous batching; a row at or past the cache's end writes
+    nothing, as in ``attention.attn_decode``)."""
     dt = x.dtype
     B = x.shape[0]
     H = cfg.n_heads
     dn, dr, dv, r = (cfg.qk_nope_dims, cfg.qk_rope_dims, cfg.v_head_dim,
                      cfg.kv_lora)
     idx = cache.index
-    pos = torch.full((1,), idx, device=x.device)
+    pos = (torch.full((1,), idx, device=x.device) if positions is None
+           else positions[:, None])
     q_nope, q_rope = _project_q(cfg, p, x, pos)
     c_new, kr_new = latent_kv(cfg, p, x, pos)
-    cache.c_kv[:, idx] = c_new[:, 0].to(cache.c_kv.dtype)
-    cache.k_rope[:, idx] = kr_new[:, 0].to(cache.k_rope.dtype)
+    if positions is None:
+        cache.c_kv[:, idx] = c_new[:, 0].to(cache.c_kv.dtype)
+        cache.k_rope[:, idx] = kr_new[:, 0].to(cache.k_rope.dtype)
+    else:
+        write_rows(cache.c_kv, positions, c_new[:, 0])
+        write_rows(cache.k_rope, positions, kr_new[:, 0])
     # absorb w_uk into the query:  q_lat[h, r] = q_nope[h, dn] @ w_uk[r, h, dn]
     w_uk = p["w_uk"].to(dt).reshape(r, H, dn)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)     # (B,1,H,r)
@@ -116,8 +130,8 @@ def mla_decode(cfg, p, x, cache: MLACache) -> Tuple[torch.Tensor, MLACache]:
          + torch.einsum("bqhd,bkd->bhqk", q_rope, cache.k_rope.to(dt))
          ) * scale
     s = s.to(_F32)
-    kv_pos = torch.arange(c_kv.shape[1], device=x.device)
-    s = torch.where((kv_pos <= idx)[None, None, None, :], s, NEG)
+    s = torch.where(decode_mask(c_kv.shape[1], idx, positions, 0, x.device),
+                    s, NEG)
     probs = torch.softmax(s, -1).to(dt)
     ctx = torch.einsum("bhqk,bkr->bqhr", probs, c_kv)        # latent ctx
     w_uv = p["w_uv"].to(dt).reshape(r, H, dv)

@@ -7,9 +7,13 @@ reference's ``lax.cond`` on a layer's shared-attention flag is a Python
 branch here. Attention caches are written in place, so a decode step
 updates the state it is given and returns it with the cursors advanced.
 
-Every row of a state is at the same position ``step`` (bucketed serving);
-per-row cursors (``write_slot``, ``prefill(state=, slot=)``) belong to the
-continuous-batching engine, which is not ported yet.
+``step`` is the sequence cursor: a Python int when every row is at the
+same position (bucketed serving), or a (B,) int64 tensor on the state's
+device when each row keeps its own (slot-swap continuous batching:
+``init_decode_state(per_row=True)``, ``write_slot``,
+``prefill(state=, slot=)``). The reference stacks its caches on a leading L
+axis, so its batch axis is 1; here each cache is a layer's own, and its
+batch axis is 0.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ class DecodeState(NamedTuple):
     shared: Optional[List[attention.KVCache]]   # per-site caches (zamba2)
     cross: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
     #                           (enc_out, K (L,B,S_enc,Hkv,dh), V) (whisper)
-    step: int                 # sequence cursor shared by every row
+    step: Any                 # int: one cursor for every row; or (B,)
+    #                           int64 tensor: one per row (continuous)
 
 
 # ------------------------------------------------------------ cache builders
@@ -47,8 +52,12 @@ def _layer_cache(cfg, batch: int, max_seq: int, dtype, device):
 
 
 def init_decode_state(cfg, batch: int, max_seq: int,
-                      dtype=torch.bfloat16, device=None) -> DecodeState:
-    """A fresh decode cache pool, every row at position 0."""
+                      dtype=torch.bfloat16, device=None,
+                      per_row: bool = False) -> DecodeState:
+    """A fresh decode cache pool, every row at position 0. ``per_row=True``
+    makes ``step`` a (B,) int64 tensor, so that every row keeps its own
+    sequence position (slot-swap serving); the per-layer ``index`` cursors
+    are then not read."""
     layer = [_layer_cache(cfg, batch, max_seq, dtype, device)
              for _ in range(cfg.n_layers)]
     shared = None
@@ -65,7 +74,9 @@ def init_decode_state(cfg, batch: int, max_seq: int,
             torch.zeros((cfg.n_layers, batch, cfg.enc_seq, Hkv, dh), **z),
             torch.zeros((cfg.n_layers, batch, cfg.enc_seq, Hkv, dh), **z),
         )
-    return DecodeState(layer=layer, shared=shared, cross=cross, step=0)
+    step = (torch.zeros((batch,), dtype=torch.int64, device=device)
+            if per_row else 0)
+    return DecodeState(layer=layer, shared=shared, cross=cross, step=step)
 
 
 def _site(cfg, i: int) -> int:
@@ -74,12 +85,16 @@ def _site(cfg, i: int) -> int:
 
 
 # ----------------------------------------------------------------- decode
-def _mixer_decode(cfg, bp, x, cache):
+def _mixer_decode(cfg, bp, x, cache, positions=None):
     if cfg.mixer == "attn":
         if cfg.mla:
-            return mla.mla_decode(cfg, bp["mla"], x, cache)
+            return mla.mla_decode(cfg, bp["mla"], x, cache,
+                                  positions=positions)
         return attention.attn_decode(cfg, bp["attn"], x, cache,
-                                     use_rope=cfg.use_rope)
+                                     use_rope=cfg.use_rope,
+                                     positions=positions)
+    # recurrent mixers carry per-row state and no positional math: the same
+    # decode serves lockstep and per-row cursors
     if cfg.mixer == "mamba2":
         return ssm.ssm_decode(cfg, bp["ssm"], x, cache)
     if cfg.mixer == "rwkv6":
@@ -105,13 +120,21 @@ def _cross_decode(cfg, bp, x, k, v):
 def decode_step(cfg, params, token: torch.Tensor,
                 state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step. token: (B, 1) int. Returns (logits (B, 1, V) fp32,
-    the state advanced by one position)."""
+    the state advanced by one position; every row's, when ``state.step``
+    is per row)."""
     dt = layers.dtype_of(cfg.compute_dtype)
+    per_row = isinstance(state.step, torch.Tensor)
+    positions = state.step if per_row else None
     x = params["embed"]["tok"].to(dt)[token]                 # (B,1,D)
     if cfg.enc_dec:
         pos_emb = layers.sinusoidal_positions(cfg.max_seq, cfg.d_model,
                                               x.device)
-        x = x + pos_emb[state.step:state.step + 1].to(dt)[None]
+        if per_row:
+            # the reference's gather clamps a position past the table
+            rows = pos_emb[positions.clamp(max=cfg.max_seq - 1)]
+            x = x + rows[:, None].to(dt)
+        else:
+            x = x + pos_emb[state.step:state.step + 1].to(dt)[None]
     layer_new = []
     shared = list(state.shared) if state.shared is not None else None
     for i in range(cfg.n_layers):
@@ -119,16 +142,18 @@ def decode_step(cfg, params, token: torch.Tensor,
         cache = state.layer[i]
         h, cache = _mixer_decode(cfg, bp,
                                  layers.apply_norm(cfg, x, bp["norm1"]),
-                                 cache)
+                                 cache, positions)
         x = x + h
         if transformer.shared_site(cfg, i):
             site = _site(cfg, i)
-            # all sites share the same write index = step
-            sc = shared[site]._replace(index=state.step)
+            sc = shared[site]
+            if not per_row:
+                # all sites share the same write index = step
+                sc = sc._replace(index=state.step)
             h2, shared[site] = attention.attn_decode(
                 cfg.replace(mixer="attn"), params["shared_attn"],
                 layers.apply_norm(cfg, x, params["shared_norm"]), sc,
-                use_rope=cfg.use_rope)
+                use_rope=cfg.use_rope, positions=positions)
             x = x + h2
         if state.cross is not None:
             _, ck, cv = state.cross
@@ -164,12 +189,55 @@ def _fill_attn(cfg, p_attn, x_norm, cache, positions):
     return cache._replace(index=S)
 
 
+def write_slot(cfg, pool: DecodeState, fresh: DecodeState,
+               slot: int) -> DecodeState:
+    """Copy a batch-1 decode state into row ``slot`` of a per-row pool, in
+    place, and return the pool with ``step[slot]`` set to the new request's
+    prompt length.
+
+    The slot-swap primitive of continuous batching: the whole row (K/V
+    lines, latent caches, recurrent state, conv buffers, the shared sites'
+    caches of a hybrid) is overwritten, so nothing a previous occupant left
+    behind remains. Every cache tensor has its batch on axis 0 (the
+    reference's stacked caches have it on axis 1); the per-layer ``index``
+    cursors are ints without a batch and stay untouched, as the reference's
+    rank < 2 leaves do.
+    """
+    if pool.cross is not None:
+        raise NotImplementedError(
+            "slot-swap prefill does not support encoder-decoder states")
+
+    def rows(pool_caches, fresh_caches):
+        for pc, fc in zip(pool_caches, fresh_caches):
+            for p, f in zip(pc, fc):
+                if isinstance(p, torch.Tensor):
+                    p[slot].copy_(f[0])
+
+    rows(pool.layer, fresh.layer)
+    if pool.shared is not None:
+        rows(pool.shared, fresh.shared)
+    step = pool.step.clone()
+    step[slot] = int(fresh.step)
+    return pool._replace(step=step)
+
+
 def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,
             vision_embeds=None, audio_frames=None,
+            state: Optional[DecodeState] = None, slot: Optional[int] = None,
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt, returning last-position logits (B, 1, V) and the
     decode state. Attention caches hold the prompt's K/V; recurrent mixers
-    keep their end-of-prompt state."""
+    keep their end-of-prompt state. Bucketed serving calls this once per
+    batch; with ``state`` and ``slot`` given, ``tokens`` must be (1, S) and
+    the request's fresh state is written into row ``slot`` of the per-row
+    pool ``state`` (a slot swap mid-decode), which is returned."""
+    if state is not None:
+        if tokens.shape[0] != 1:
+            raise ValueError("slot prefill expects a (1, S) prompt; got "
+                             f"B={tokens.shape[0]}")
+        logits, fresh = prefill(cfg, params, tokens, max_seq, vision_embeds,
+                                audio_frames)
+        return logits, write_slot(cfg, state, fresh, slot)
     dt = layers.dtype_of(cfg.compute_dtype)
     B = tokens.shape[0]
     dev = tokens.device

@@ -31,7 +31,7 @@ def _cuda_devices(x: Any, found: set) -> set:
     return found
 
 
-def _block(x: Any) -> Any:
+def block_until_ready(x: Any) -> Any:
     """Wait until the card has finished every CUDA tensor in ``x`` (walking
     tuples, lists and dicts); identity for anything else."""
     for dev in _cuda_devices(x, set()):
@@ -76,7 +76,7 @@ def timeit(
     for _ in range(max(0, warmup)):
         out = fn()
         if block:
-            _block(out)
+            block_until_ready(out)
     times = []
     hist = metrics.histogram(f"{label}_s") if name else None
     for i in range(max(1, reps)):
@@ -84,7 +84,7 @@ def timeit(
             t0 = time.perf_counter()
             out = fn()
             if block:
-                _block(out)
+                block_until_ready(out)
             dt = time.perf_counter() - t0
         times.append(dt)
         if hist is not None:

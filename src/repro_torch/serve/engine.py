@@ -1,31 +1,53 @@
-"""Serving: the bucketed language-model engine and STKDE partial answers.
+"""Serving: the language-model engine (slot-swap continuous batching, and
+the bucketed path) and STKDE partial answers.
 
-Language models (the reference's ``serve/engine.py``, bucketed path):
+Language models (the reference's ``serve/engine.py``):
 
   * ``make_serve_step(cfg)`` / ``make_prefill(cfg, max_seq)`` — the
     (params, state, token) -> (logits, state) decode function and the
     prompt prefill the engine calls.
-  * ``ServingEngine`` with ``EngineConfig(continuous_batching=False)`` —
-    same-length buckets of at most ``max_batch`` requests, one prefill and a
-    lockstep decode per bucket; finished rows idle until the bucket drains.
-    Greedy decode gives the reference's bucketed engine's tokens. The
-    slot-swap continuous-batching path (the reference's default,
-    ``continuous_batching=True``) is not ported yet: asking for it raises
-    ``NotImplementedError`` naming ROADMAP A.13b (an encoder-decoder config,
-    which the reference serves bucketed either way, is served bucketed).
+  * ``ServingEngine`` with ``EngineConfig.continuous_batching`` (the
+    default) runs a fixed pool of ``max_batch`` decode slots with per-row
+    cache positions (``DecodeState.step`` a (B,) tensor): a row that hits
+    EOS, ``max_new`` or its deadline is swapped out at once and the next
+    queued request is prefilled into the freed slot mid-decode
+    (``models.model.prefill(..., state=, slot=)``), so no slot idles while
+    work is queued. ``continuous_batching=False`` keeps the bucketed path:
+    same-length buckets of at most ``max_batch`` requests, one prefill and
+    a lockstep decode per bucket; finished rows idle until the bucket
+    drains. An encoder-decoder config is always served bucketed (a slot
+    swap has no per-row encoder output), as in the reference. Greedy
+    decode gives the same tokens on both paths (per-row masks keep each
+    row's arithmetic apart from its neighbours'), except where a MoE
+    layer's expert capacity drops tokens: its capacity depends on how many
+    tokens share the call, so a prompt prefilled alone and the same prompt
+    prefilled in a bucket can drop different ones (the reference's
+    engine does the same).
+
+Scheduler loop (continuous path)::
+
+    while queued or occupied:
+        retire rows at EOS / max_new / deadline   -> RequestResult
+        prefill queued requests into free slots   (serve.swap_s)
+        one masked decode step over the pool      (serve.decode_token_s)
 
 Resilience contract, as the reference's: ``submit`` validates prompts and
 enforces bounded admission (``EngineConfig.max_queue``, typed
 ``AdmissionError`` + ``serve.rejected`` counter); ``run`` never raises for
-a per-request failure: a failing bucket is retried whole under
-``EngineConfig.retry``, then each of its requests alone, and a request that
-still fails ends in a typed failed ``RequestResult``. Fault sites
-``serve.prefill`` / ``serve.decode`` are the port's injector's.
+a per-request failure. Continuous: a failing slot prefill is retried under
+``EngineConfig.retry`` and then fails only that request; a failing decode
+step is retried in place and, when retries run out, fails only the rows
+occupied at that moment. Bucketed: a failing bucket is retried whole, then
+each of its requests alone. A request that still fails ends in a typed
+failed ``RequestResult``. Fault sites ``serve.prefill`` / ``serve.decode``
+are the port's injector's.
 
-Observability: ``serve.bucket`` / ``serve.prefill`` spans,
-``serve.queue_wait_s`` (once per request), ``serve.prefill_s``,
-``serve.decode_token_s``, ``serve.slot_idle_frac``, ``serve.tokens_per_s``
-(wall clock) and ``serve.decode_tokens_per_s`` (decode-step time only).
+Observability: ``serve.continuous`` / ``serve.bucket`` / ``serve.prefill``
+spans, ``serve.queue_wait_s`` (once per request, at its first service
+attempt), ``serve.prefill_s``, ``serve.swap_s``, ``serve.decode_token_s``,
+``serve.slot_occupancy``, ``serve.slot_idle_frac``, ``serve.tokens_per_s``
+(wall clock, swaps included) and ``serve.decode_tokens_per_s`` (decode-step
+time only).
 
 STKDE: ``stkde_partial_answer`` is the lowest rung of the degrade ladder,
 over the port's ``ProgressJournal``, which reads a journal written by either
@@ -35,14 +57,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from collections import defaultdict
-from typing import Dict, List, Optional
+from collections import defaultdict, deque
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import obs
 from .._device import DeviceLike, resolve_device
+from ..models import layers
 from ..models import model as model_lib
 from ..models.model import DecodeState
 from ..models.transformer import tree_map
@@ -126,7 +149,7 @@ def _blank_stats(mode: str) -> Dict:
         "decode_s": 0.0,
         "n_tokens": 0,
         "decode_steps": 0,
-        "slot_steps": 0,          # decode_steps * bucket width
+        "slot_steps": 0,          # decode_steps * pool or bucket width
         "active_slot_steps": 0,   # slot-steps that produced a kept token
         "swaps": 0,
         "queue_wait_s": [],
@@ -144,16 +167,16 @@ def sample_seed(seed: int, uid: int, count: int) -> int:
 
 
 class ServingEngine:
-    """Bucketed serving of ``cfg`` with ``params`` on ``device`` (``None``
-    means ``"cuda"``; the parameters are moved there if they are not).
+    """Serving of ``cfg`` with ``params`` on ``device`` (``None`` means
+    ``"cuda"``; the parameters are moved there if they are not).
 
     Sampling at ``temperature > 0`` cannot reproduce the reference's
     ``jax.random`` streams. Each token is drawn on the host from the
     softmax of its row's fp32 logits over ``temperature``, by a
     ``torch.Generator`` seeded with ``sample_seed(seed, uid, count)``: the
-    token depends on the request and its position only, so a bucket retried
-    whole, or a request rerun alone, draws the same tokens, as the
-    reference promises.
+    token depends on the request and its position only, so a retry, a
+    request rerun alone, or the other scheduling path draws the same
+    tokens, as the reference promises.
     """
 
     def __init__(self, cfg, params, ecfg: EngineConfig,
@@ -167,12 +190,6 @@ class ServingEngine:
             raise ReproValidationError(
                 f"max_batch must be >= 1: {ecfg.max_batch}"
             )
-        if ecfg.continuous_batching and not getattr(cfg, "enc_dec", False):
-            raise NotImplementedError(
-                "continuous batching (slot-swap decode) is not ported yet "
-                "(ROADMAP A.13b); pass EngineConfig(continuous_batching="
-                "False) for the bucketed engine"
-            )
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = tree_map(lambda a: a.to(self.device), params)
@@ -183,6 +200,16 @@ class ServingEngine:
         self.last_stats: Dict = _blank_stats("idle")
         self._prefill = make_prefill(cfg, ecfg.max_seq)
         self._step = make_serve_step(cfg)
+        # continuous batching needs decoder-only states (a slot swap has no
+        # per-row encoder output); whisper-style configs are served bucketed
+        self._continuous = (ecfg.continuous_batching
+                            and not getattr(cfg, "enc_dec", False))
+
+    def _prefill_slot(self, params, tokens, state: DecodeState, slot: int):
+        """Prefill a (1, S) prompt into row ``slot`` of the pool ``state``."""
+        return model_lib.prefill(self.cfg, params, tokens,
+                                 max_seq=self.ecfg.max_seq, state=state,
+                                 slot=slot)
 
     # ------------------------------------------------------------- submit
     def _validate_prompt(self, prompt: np.ndarray) -> np.ndarray:
@@ -244,15 +271,20 @@ class ServingEngine:
         """
         reqs, self.queue = self.queue, []
         self.results = {}
-        self.last_stats = _blank_stats("bucketed")
+        self.last_stats = _blank_stats(
+            "continuous" if self._continuous else "bucketed")
         t0 = time.perf_counter()
-        buckets = defaultdict(list)
-        for r in reqs:
-            buckets[len(r.prompt)].append(r)
         with torch.inference_mode():
-            for _, bucket in sorted(buckets.items()):
-                for i in range(0, len(bucket), self.ecfg.max_batch):
-                    self._serve_bucket(bucket[i: i + self.ecfg.max_batch])
+            if self._continuous:
+                self._run_continuous(reqs)
+            else:
+                buckets = defaultdict(list)
+                for r in reqs:
+                    buckets[len(r.prompt)].append(r)
+                for _, bucket in sorted(buckets.items()):
+                    for i in range(0, len(bucket), self.ecfg.max_batch):
+                        self._serve_bucket(
+                            bucket[i: i + self.ecfg.max_batch])
         st = self.last_stats
         st["wall_s"] = time.perf_counter() - t0
         if st["slot_steps"]:
@@ -315,6 +347,170 @@ class ServingEngine:
             attempts=attempts, reason=f"{type(exc).__name__}: {exc}",
         )
         self.done[r.uid] = toks
+
+    # ------------------------------------------------- continuous batching
+    def _run_continuous(self, reqs: List[Request]) -> None:
+        """Slot-swap scheduler: fixed pool of ``max_batch`` decode slots,
+        per-row cache positions, mid-decode prefill into freed slots."""
+        B = self.ecfg.max_batch
+        dev = self.device
+        state = model_lib.init_decode_state(
+            self.cfg, B, self.ecfg.max_seq,
+            layers.dtype_of(self.cfg.compute_dtype), dev, per_row=True)
+        pending = deque(reqs)
+        slots: List[Optional[Request]] = [None] * B
+        gen: List[List[int]] = [[] for _ in range(B)]
+        attempts = [1] * B
+        retried = [False] * B
+        last_tok = np.zeros(B, np.int64)
+        uids = np.zeros(B, np.int64)
+        st = self.last_stats
+        decode_h = obs.histogram("serve.decode_token_s")
+        swap_h = obs.histogram("serve.swap_s")
+        eos = self.ecfg.eos_id
+
+        def occupied() -> List[int]:
+            return [i for i in range(B) if slots[i] is not None]
+
+        def retire(i: int, reason: str = "") -> None:
+            r = slots[i]
+            slots[i] = None
+            toks = gen[i][: r.max_new]
+            gen[i] = []
+            degraded = bool(reason) or retried[i]
+            self.results[r.uid] = RequestResult(
+                uid=r.uid, tokens=np.asarray(toks, np.int32), ok=True,
+                degraded=degraded, attempts=attempts[i],
+                reason=reason or ("retried" if retried[i] else ""),
+            )
+            self.done[r.uid] = self.results[r.uid].tokens
+
+        def retire_finished() -> None:
+            now = time.perf_counter()
+            for i in occupied():
+                r = slots[i]
+                if len(gen[i]) >= r.max_new:
+                    retire(i)
+                elif (r.deadline is not None and now > r.deadline
+                        and (eos < 0 or eos not in gen[i])):
+                    obs.counter("serve.deadline_truncated").inc()
+                    retire(i, reason="deadline_truncated")
+
+        with obs.span("serve.continuous", batch=B, n_requests=len(reqs)):
+            while pending or occupied():
+                retire_finished()
+                # ---- swap in: prefill queued requests into free slots
+                for i in range(B):
+                    if slots[i] is not None or not pending:
+                        continue
+                    r = pending.popleft()
+                    self._observe_queue_wait(r)
+                    t_sw = time.perf_counter()
+                    swapped = self._swap_in(r, i, state)
+                    swap_h.observe(time.perf_counter() - t_sw)
+                    st["swaps"] += 1
+                    if swapped is None:      # typed failure already logged
+                        continue
+                    state, first, n_att = swapped
+                    slots[i] = r
+                    gen[i] = [first]
+                    last_tok[i] = first
+                    uids[i] = r.uid
+                    attempts[i] = n_att
+                    retried[i] = n_att > 1
+                    st["n_tokens"] += 1
+                retire_finished()            # max_new==1 / expired deadlines
+                occ = occupied()
+                obs.gauge("serve.slot_occupancy").set(len(occ) / B)
+                if not occ:
+                    if pending:
+                        continue
+                    break
+                # ---- one masked decode step over the whole pool
+                tok = torch.from_numpy(last_tok[:, None]).to(dev)
+                counts = [len(g) for g in gen]
+                cur_state = state
+
+                def step_attempt() -> Tuple[DecodeState, np.ndarray]:
+                    faults.fault_point("serve.decode")
+                    # idle rows decode too; their tokens are thrown away,
+                    # and a row past the cache's end writes nothing
+                    logits, new_state = self._step(self.params, cur_state,
+                                                   tok)
+                    logits = faults.poison("serve.decode", logits)
+                    # checked before sampling: a draw from NaN
+                    # probabilities raises rather than yielding a token
+                    self._check_logits(logits[occ, -1])
+                    nxt = self._sample(logits[:, -1], uids, counts)
+                    return new_state, nxt.cpu().numpy()   # device sync
+
+                def bump(_a, _e, _d):
+                    for i in occ:
+                        attempts[i] += 1
+                        retried[i] = True
+
+                t_dec = time.perf_counter()
+                try:
+                    state, nxt = with_retry(
+                        step_attempt, policy=self.ecfg.retry,
+                        site="serve.decode", on_retry=bump,
+                    )
+                except Exception as e:  # noqa: BLE001 — per-slot degrade
+                    obs.counter("serve.step_failed").inc()
+                    for i in occ:
+                        r, toks = slots[i], gen[i]
+                        slots[i], gen[i] = None, []
+                        self._fail(r, e, attempts[i], tokens=toks)
+                    continue
+                dt_step = time.perf_counter() - t_dec
+                decode_h.observe(dt_step)
+                st["decode_s"] += dt_step
+                st["decode_steps"] += 1
+                st["slot_steps"] += B
+                st["active_slot_steps"] += len(occ)
+                for i in occ:
+                    t = int(nxt[i])
+                    gen[i].append(t)
+                    last_tok[i] = t
+                    st["n_tokens"] += 1
+                    if t == eos and len(gen[i]) > 1:
+                        retire(i)
+
+    def _swap_in(self, r: Request, slot: int, state: DecodeState):
+        """Prefill one request into pool row ``slot`` (retried under the
+        engine policy). Returns (state, first_token, attempts) or None
+        after recording a typed failure — never raises."""
+        n_att = [1]
+
+        def bump(_a, _e, _d):
+            n_att[0] += 1
+
+        prompt = torch.from_numpy(r.prompt[None].astype(np.int64)).to(
+            self.device)
+
+        def attempt():
+            with obs.span("serve.prefill", slot=slot, seq=len(r.prompt)) \
+                    as sp:
+                faults.fault_point("serve.prefill")
+                logits, new_state = self._prefill_slot(
+                    self.params, prompt, state, slot)
+                logits = faults.poison("serve.prefill", logits)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            obs.histogram("serve.prefill_s").observe(sp.duration_s)
+            self._check_logits(logits[:, -1])
+            return logits, new_state
+
+        try:
+            logits, new_state = with_retry(
+                attempt, policy=self.ecfg.retry, site="serve.prefill",
+                on_retry=bump,
+            )
+        except Exception as e:  # noqa: BLE001 — per-slot degrade
+            self._fail(r, e, n_att[0])
+            return None
+        first = int(self._sample(logits[:, -1], [r.uid], [0])[0])
+        return new_state, first, n_att[0]
 
     # ---------------------------------------------------------- bucketed
     def _serve_bucket(self, reqs: List[Request]):

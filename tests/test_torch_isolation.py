@@ -38,7 +38,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
-    assert n >= 50, proc.stdout
+    assert n >= 58, proc.stdout
 
 
 def test_distributed_modules_stand_alone():
@@ -62,9 +62,9 @@ print("MISSING", sorted(want - set(names)))
 
 
 def test_lm_modules_stand_alone():
-    """The language models, their configs and the serving engine are
-    imported with jax unimportable, and bring in neither jax nor the
-    reference."""
+    """The language models, their configs, the serving engine, the training
+    stack, its data stream and the launch entry points are imported with jax
+    unimportable, and bring in neither jax nor the reference."""
     probe = _PROBE + r"""
 want = {"repro_torch.models", "repro_torch.models.config",
         "repro_torch.models.layers", "repro_torch.models.attention",
@@ -72,7 +72,12 @@ want = {"repro_torch.models", "repro_torch.models.config",
         "repro_torch.models.ssm", "repro_torch.models.rwkv",
         "repro_torch.models.transformer", "repro_torch.models.model",
         "repro_torch.configs", "repro_torch.configs.lm_archs",
-        "repro_torch.serve", "repro_torch.serve.engine"}
+        "repro_torch.serve", "repro_torch.serve.engine",
+        "repro_torch.train", "repro_torch.train.optimizer",
+        "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+        "repro_torch.train.runner", "repro_torch.data",
+        "repro_torch.data.pipeline", "repro_torch.launch",
+        "repro_torch.launch.train", "repro_torch.launch.serve"}
 print("MISSING", sorted(want - set(names)))
 """
     proc = subprocess.run(

@@ -189,8 +189,8 @@ def test_block_never_touches_cuda_for_host_values(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "synchronize", no_cuda)
     x = {"a": [torch.ones(2), (torch.zeros(1), 3)], "b": "s"}
-    assert timing._block(x) is x
-    assert timing._block(7) == 7
+    assert timing.block_until_ready(x) is x
+    assert timing.block_until_ready(7) == 7
     res = timeit(lambda: torch.ones(8).sum(), reps=2, warmup=0)
     assert len(res.times) == 2
 

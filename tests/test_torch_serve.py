@@ -6,8 +6,8 @@ configs, weights carried across from the reference's ``init_params``; EOS
 stops, ``cache_bytes``, and the serve cases of ``tests/test_serve.py`` and
 ``tests/test_resilience.py`` (validation, bounded admission, timeouts,
 retry-or-degrade under the port's fault injector — the same spec and seed
-give the reference's outcome), the continuous-batching guard, and seeded
-sampling that repeats per ``(seed, uid, count)``.
+give the reference's outcome), which configs the slot-swap path serves, and
+seeded sampling that repeats per ``(seed, uid, count)``.
 """
 import jax
 import numpy as np
@@ -275,11 +275,16 @@ def test_prefill_fault_retried_whole(smollm):
 
 
 def test_continuous_batching_is_refused(smollm):
+    """Only an encoder-decoder is refused the slot-swap path (the twin of
+    the reference's ``test_enc_dec_falls_back_to_bucketed``): whisper is
+    served bucketed, and the default ``EngineConfig()`` builds the
+    continuous engine for a decoder-only config."""
     _, _, cfg, params = smollm
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        ServingEngine(cfg, params, EngineConfig(), device=CPU)
+    eng = ServingEngine(cfg, params, EngineConfig(), device=CPU)
+    assert eng._continuous
     whisper = reduced(ARCHS["whisper-large-v3"])
-    ServingEngine(whisper, {}, EngineConfig(), device=CPU)   # bucketed
+    eng = ServingEngine(whisper, {}, EngineConfig(), device=CPU)
+    assert not eng._continuous
 
 
 def test_engine_defaults_to_the_card(smollm):
