@@ -41,7 +41,15 @@ continuous against bucketed. ``lm_train`` takes one train step of each
 ``smollm-360m`` for 20 steps through ``repro_torch.launch.train.main``
 (async checkpoints every 10), then kills the run after step 10 and resumes
 it: the step-10 checkpoint restored bit for bit, the resumed step-20 loss
-against the uninterrupted one's. The tile branch buckets its points on the
+against the uninterrupted one's. ``lm_sharded`` runs what exists only across
+devices on meshes whose shards all sit on this card: the placement rules of
+the ten configs at full size on the production meshes, the MoE all-to-all
+at ``deepseek-v2-lite-16b``'s published widths against ``moe_apply``
+(output, aux, gradients) and reduced ``dbrx-132b`` under a hint mesh, int8
+gradient compression of a full ``smollm-360m`` gradient on 4 shards, full
+``smollm-360m`` trained on a (2, 2) mesh against the one-device step, and
+the roofline bound on the card's measured peaks against the measured
+steps. The tile branch buckets its points on the
 card; its buckets are held bit for bit against the host's numpy bucketing at
 both full-size rows.
 
@@ -106,8 +114,13 @@ TILE_CASES = [
 ]
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script was imported."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1931,7 +1944,7 @@ def restored_bits_equal(tree, ckpt_dir: str, step: int) -> dict:
             "ok": equal == on_card == len(flat)}
 
 
-def phase_lm_train(dev: dict) -> None:
+def phase_lm_train(dev: dict) -> float:
     """Training on the card (no kernel of its own: plain ops and
     ``torch.autograd``). (a) One step of each ``reduced`` config, card
     against CPU. (b) ``smollm-360m`` at full width and depth, fp32, through
@@ -2034,6 +2047,492 @@ def phase_lm_train(dev: dict) -> None:
          seconds=time.perf_counter() - t0)
     if not ok:
         fail("lm_train: a check failed (see the lm_train line)")
+    return med * 1e3
+
+
+# ------------------------------------------------------------ lm_sharded
+# a2a against moe_apply on the card, same weights and input: fp32, TF32 off
+A2A_TOL = dict(rtol=1e-5, atol_rel_to_max=1e-6)
+# deepseek-v2-lite-16b's MoE layer at its published widths, one (4, 512)
+# batch over a (1, 8) ("data", "model") mesh: 8 local experts per rank
+A2A_ARCH = "deepseek-v2-lite-16b"
+A2A_X = (4, 512)
+A2A_MESH = (1, 8)
+# sharded training: the step-1 loss and grad norm, the parameters after one
+# step (as a share of its lr), the three losses
+SHARDED_LOSS_RTOL = 1e-5
+SHARDED_GNORM_RTOL = 1e-4
+SHARDED_PARAM_ATOL_LR = 0.5
+SHARDED_LOSSES_RTOL = 1e-3
+SHARDED_STEPS = 3
+SHARDED_TIMED = 3     # more steps of each path, timed only
+GC_SHARDS = 4
+
+
+def card_mesh(shape, names) -> "object":
+    """A mesh whose every position is the one card."""
+    from repro_torch.distributed import Mesh
+
+    return Mesh(np.full(shape, "cuda", dtype=object), names)
+
+
+def specs_at_full_size() -> dict:
+    """(a) ``param_specs`` over ``param_specs_abstract`` (meta tensors) of
+    the ten configs on both production meshes: every sharded axis divides
+    its dimension; counts of leaves, sharded leaves and axes used."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import make_production_mesh, specs
+
+    t0 = time.perf_counter()
+    rows, bad = {}, []
+    trees = {n: specs.param_specs_abstract(ARCHS[n]) for n in sorted(ARCHS)}
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cuda")
+        tag = "x".join(str(v) for v in mesh.shape.values())
+        for name, tree in trees.items():
+            flat = {}
+
+            def walk(t, s, path=""):
+                if isinstance(t, dict):
+                    for k in t:
+                        walk(t[k], s[k], f"{path}{k}/")
+                else:
+                    flat[path[:-1]] = (t, s)
+
+            walk(tree, sh.param_specs(tree, mesh, fsdp=True))
+            n_split, pieces = 0, 0
+            for path, (arr, spec) in flat.items():
+                for i, ax in enumerate(spec):
+                    size = int(np.prod([mesh.shape[a]
+                                        for a in sh.P.axes_of(ax)]))
+                    if arr.shape[i] % size:
+                        bad.append((tag, name, path))
+                n = int(np.prod([mesh.shape[a] for a in spec.mesh_axes()]))
+                n_split += n > 1
+                pieces += n
+            rows.setdefault(name, {})[tag] = {
+                "leaves": len(flat), "sharded_leaves": n_split,
+                "pieces": pieces,
+                "params": int(sum(a.numel() for a, _ in flat.values()))}
+    return {"rows": rows, "not_dividing": bad, "ok": not bad,
+            "seconds": time.perf_counter() - t0}
+
+
+def moe_drops(cfg, p, x, mesh=None) -> int:
+    """(token, slot) pairs the layer drops: ``moe_apply``'s per-expert
+    capacity, or, with ``mesh``, ``moe_apply_a2a``'s per-rank one."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+
+    T, D = x.shape[0] * x.shape[1], x.shape[2]
+    E, K = cfg.n_experts, cfg.top_k
+    xt = x.reshape(T, D)
+    with torch.no_grad():
+        if mesh is None:
+            _, _, idx = moe._route(xt, p["router"], K)
+            keep, _ = moe._slots(idx.reshape(-1), E,
+                                 moe._capacity(T, cfg, E))
+            return int((~keep).sum())
+        M = mesh.shape[sh.TP]
+        T2 = T // M       # one batch shard on the (1, M) mesh
+        drops = 0
+        for m in range(M):
+            _, _, idx = moe._route(xt[m * T2:(m + 1) * T2], p["router"], K)
+            keep, _ = moe._slots(idx.reshape(-1) // (E // M), M,
+                                 moe._capacity(T2, cfg, M))
+            drops += int((~keep).sum())
+        return drops
+
+
+def a2a_full_width() -> dict:
+    """(b) deepseek-v2-lite-16b's MoE layer at its published widths (64
+    experts, top-6, 2 shared, d_model 2048, d_ff_expert 1408), fp32, on
+    x (4, 512, 2048) over a (1, 8) mesh on the card: at capacity factor 8
+    (= M: no a2a slot can overflow; moe_apply's drops counted too) output,
+    aux and the gradients of router, wg, wu, wo against ``moe_apply``; at
+    the config's 1.25 both paths' drops and times. Then reduced dbrx
+    through ``forward`` under ``hint_mesh`` (4, 2) against the same call
+    without a mesh, at a capacity where neither path drops."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import forward, init_params, moe
+
+    t0 = time.perf_counter()
+    full = ARCHS[A2A_ARCH].replace(compute_dtype="float32")
+    mesh = card_mesh(A2A_MESH, ("data", "model"))
+    M = A2A_MESH[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    p = moe.moe_init(gen, full)
+    x = torch.randn(A2A_X + (full.d_model,), generator=gen,
+                    device="cuda") * 0.5
+    expert_bytes = sum(p[k].nbytes for k in ("wg", "wu", "wo"))
+    keys = ("router", "wg", "wu", "wo")
+
+    def run(cfg, a2a: bool):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()
+                  if k != "shared"}
+        leaves["shared"] = p["shared"]
+        fn = ((lambda: moe.moe_apply_a2a(cfg, leaves, x, mesh)) if a2a
+              else (lambda: moe.moe_apply(cfg, leaves, x)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y, aux = fn()
+        loss = (y.float() ** 2).mean() + aux
+        torch.cuda.synchronize()
+        fwd = time.perf_counter() - t
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        torch.cuda.synchronize()
+        both = time.perf_counter() - t
+        return (y.detach(), aux.detach(), dict(zip(keys, grads)),
+                {"forward_s": fwd, "forward_backward_s": both})
+
+    nodrop = full.replace(capacity_factor=float(M))
+    drops = {"moe_apply": moe_drops(nodrop, p, x),
+             "a2a": moe_drops(nodrop, p, x, mesh)}
+    for a2a in (True, False):      # warm-up (allocator, cuBLAS plans)
+        run(nodrop, a2a)
+    torch.cuda.reset_peak_memory_stats()
+    ya, auxa, ga, ta = run(nodrop, True)
+    peak_a2a = torch.cuda.max_memory_allocated()
+    yp, auxp, gp, tp = run(nodrop, False)
+    tol = A2A_TOL
+    checks = {"y": compare(ya, yp, tol["rtol"],
+                           tol["atol_rel_to_max"] * float(yp.abs().max())),
+              "aux": compare(auxa.reshape(1), auxp.reshape(1), tol["rtol"],
+                             tol["atol_rel_to_max"] * float(auxp.abs()))}
+    for k in keys:
+        checks["grad_" + k] = compare(
+            ga[k], gp[k], tol["rtol"],
+            tol["atol_rel_to_max"] * float(gp[k].abs().max()))
+    E_loc = full.n_experts // M
+    T2 = A2A_X[0] * A2A_X[1] // M
+    C2 = moe._capacity(T2, nodrop, M)
+    rows = M * C2
+    # the a2a's expert matmuls: every rank, every local expert, every row
+    a2a_flop = M * E_loc * rows * full.d_model * full.d_ff_expert * 6
+    del ga, gp, ya, yp
+    # the config's own capacity: drops and forward times, not compared
+    own = {}
+    with torch.no_grad():
+        for name, fn in (("a2a", lambda: moe.moe_apply_a2a(full, p, x, mesh)),
+                         ("moe_apply", lambda: moe.moe_apply(full, p, x))):
+            ms, _ = cuda_ms(fn, warmup=1, runs=3)
+            own[name] = {"forward_ms": ms,
+                         "dropped": moe_drops(full, p, x, mesh if name == "a2a"
+                                              else None)}
+    del p, x
+    torch.cuda.empty_cache()
+
+    # reduced dbrx through forward, hint mesh (4, 2) against none
+    dcfg = reduced(ARCHS["dbrx-132b"])
+    wide = dcfg.replace(capacity_factor=dcfg.n_experts / dcfg.top_k)
+    params = init_params(wide, device="cuda", seed=0)
+    toks, _ = lm_inputs(wide, 8, 32, seed=5)
+    toks = toks.cuda()
+    calls = []
+    real = moe.moe_apply_a2a
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    moe.moe_apply_a2a = counted
+    try:
+        with torch.no_grad():
+            plain, aux_p = forward(wide, params, toks)
+            with sh.hint_mesh(card_mesh((4, 2), ("data", "model"))):
+                exch, aux_e = forward(wide, params, toks)
+    finally:
+        moe.moe_apply_a2a = real
+    dbrx = {"a2a_calls": len(calls), "n_layers": wide.n_layers,
+            "logits": compare(exch, plain, LM_TOL["rtol"],
+                              LM_TOL["atol_rel_to_max"]
+                              * float(plain.abs().max())),
+            "aux_abs_diff": float((aux_e - aux_p).abs())}
+    ok = (all(c["ok"] for c in checks.values())
+          and drops == {"moe_apply": 0, "a2a": 0}
+          and dbrx["a2a_calls"] == wide.n_layers and dbrx["logits"]["ok"])
+    return {"arch": A2A_ARCH, "n_experts": full.n_experts,
+            "top_k": full.top_k, "n_shared_experts": full.n_shared_experts,
+            "d_model": full.d_model, "d_ff_expert": full.d_ff_expert,
+            "x": list(A2A_X) + [full.d_model], "mesh": list(A2A_MESH),
+            "expert_weight_bytes": expert_bytes,
+            "no_drop": {"capacity_factor": float(M), "dropped": drops,
+                        "a2a_slots_per_rank": C2,
+                        "a2a_rows_per_rank": rows,
+                        "a2a_expert_tflop_forward": a2a_flop / 1e12,
+                        "a2a": ta, "moe_apply": tp,
+                        "a2a_peak_device_bytes": peak_a2a,
+                        "checks": checks, "tolerance": A2A_TOL},
+            "own_capacity": {"capacity_factor": full.capacity_factor,
+                             **own},
+            "dbrx_reduced_hint_mesh": dbrx, "ok": ok,
+            "seconds": time.perf_counter() - t0}
+
+
+def grad_compress_full() -> dict:
+    """(c) One step's gradients of full ``smollm-360m`` (fp32, 361.8 M) on
+    4 shards of a ``("pod",)`` axis (the gradients of 4 micro-batches of
+    2 x 256, all on the card): ``psum_compressed`` against the fp32 sum,
+    per leaf error <= 4 x scale / 2; ``quantize`` of the first leaf on the
+    card bit-identical to the CPU's."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import collectives
+    from repro_torch.models import init_params
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train import make_loss_fn, optimizer as opt
+    from repro_torch.train.train_step import value_and_grad
+
+    t0 = time.perf_counter()
+    cfg = ARCHS["smollm-360m"].replace(compute_dtype="float32")
+    params = init_params(cfg, device="cuda", seed=0)
+    b = train_batch(cfg, seed=0, batch=8, seq=256)
+    per = 8 // GC_SHARDS
+    names = [k for k, _ in sorted_paths(params)]
+    shards = []
+    for k in range(GC_SHARDS):
+        part = {n: v[k * per:(k + 1) * per].cuda() for n, v in b.items()}
+        _, g = value_and_grad(make_loss_fn(cfg), params, part)
+        shards.append(dict(sorted_paths(g)))
+    del params
+    grads = {n: collectives.shard_array([s[n] for s in shards])
+             for n in names}
+    del shards
+    n_params = sum(grads[n][0].numel() for n in names)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, state = gc.psum_compressed(grads, gc.init(grads), 0)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t1
+    worst, worst_leaf = 0.0, None
+    for n in names:
+        exact = collectives.psum(grads[n], 0).item()
+        amax = max(float(g.abs().max()) for g in grads[n]) + 1e-12
+        scale = torch.tensor(amax, dtype=torch.float32) / torch.tensor(
+            127.0)
+        bound = GC_SHARDS * float(scale) / 2
+        r = float((out[n].item() - exact).abs().max()) / bound
+        if r > worst:
+            worst, worst_leaf = r, n
+    first = grads[names[0]][0]
+    q_card, s_card = gc.quantize(first)
+    q_cpu, s_cpu = gc.quantize(first.cpu())
+    same = (torch.equal(q_card.cpu(), q_cpu)
+            and s_card.cpu().numpy().tobytes() == s_cpu.numpy().tobytes())
+    del grads, out, state
+    torch.cuda.empty_cache()
+    # the int8 payload against fp32 on the wire: bytes a shard sends
+    return {"arch": cfg.name, "shards": GC_SHARDS, "leaves": len(names),
+            "params": n_params, "psum_compressed_s": t_comp,
+            "payload_bytes_int8": n_params, "payload_bytes_fp32":
+                4 * n_params,
+            "worst_err_over_bound": worst, "worst_leaf": worst_leaf,
+            "bound": "per leaf: shards x scale / 2 (scale = shared amax / "
+                     "127)",
+            "quantize_first_leaf": {"leaf": names[0],
+                                    "numel": first.numel(),
+                                    "card_equals_cpu_bits": same},
+            "ok": worst <= 1.0 + 1e-3 and same,
+            "seconds": time.perf_counter() - t0}
+
+
+def sorted_paths(tree, prefix=""):
+    """(path, leaf) of a parameter tree in sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_paths(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def sharded_training() -> dict:
+    """(d) full ``smollm-360m`` fp32, batch 8 x 256 of ``SyntheticLM``:
+    ``make_sharded_train_step`` on a (2, 2) ("data", "model") mesh on the
+    card against ``make_train_step`` from the same weights and batches,
+    the two taking turns step by step: the first 3 steps are compared, ms
+    per step is the median of steps 2-6 (both paths' batches cycle); the
+    memory a step of each path adds to what both paths hold."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import init_params
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              shard_train_state)
+
+    t0 = time.perf_counter()
+    cfg = ARCHS["smollm-360m"].replace(compute_dtype="float32")
+    ocfg = OptimizerConfig(lr=3e-3, warmup_steps=10, total_steps=20)
+    mesh = card_mesh((2, 2), ("data", "model"))
+    params = init_params(cfg, device="cuda", seed=0)
+    batches = [{k: v.cuda() for k, v in train_batch(
+        cfg, seed=s, batch=8, seq=256).items()} for s in range(SHARDED_STEPS)]
+    paths = {"one_device": [make_train_step(cfg, ocfg),
+                            (params, opt.init(params))],
+             "sharded": [make_sharded_train_step(cfg, ocfg, mesh),
+                         shard_train_state(params, opt.init(params), mesh)]}
+    n_pieces = sum(leaf.pieces.size
+                   for _, leaf in sorted_paths(paths["sharded"][1][0]))
+    n_params = sum(a.numel() for _, a in sorted_paths(params))
+    del params
+    metrics = {k: [] for k in paths}
+    times = {k: [] for k in paths}
+    peaks = {k: 0 for k in paths}
+    peak_all = 0
+    after1 = {}
+    for i in range(SHARDED_STEPS + SHARDED_TIMED):
+        for tag, path in paths.items():
+            step, (p, s) = path
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            p, s, m = step(p, s, batches[i % SHARDED_STEPS])
+            torch.cuda.synchronize()
+            times[tag].append(time.perf_counter() - t)
+            # what the step adds to what both paths hold
+            peaks[tag] = max(peaks[tag],
+                             torch.cuda.max_memory_allocated() - held)
+            peak_all = max(peak_all, torch.cuda.max_memory_allocated())
+            path[1] = (p, s)
+            if i < SHARDED_STEPS:
+                metrics[tag].append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                after1[tag] = sh.gather_tree(p)
+    del paths
+    lr1 = float(opt.lr_at(ocfg, 1))
+    dp = max(float((a - b).abs().max())
+             for (_, a), (_, b) in zip(sorted_paths(after1["sharded"]),
+                                       sorted_paths(after1["one_device"])))
+    del after1
+    torch.cuda.empty_cache()
+    m1, m2 = metrics["one_device"], metrics["sharded"]
+    loss_rel = abs(m2[0]["loss"] - m1[0]["loss"]) / abs(m1[0]["loss"])
+    gn_rel = abs(m2[0]["grad_norm"] - m1[0]["grad_norm"]) / m1[0][
+        "grad_norm"]
+    losses_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                     for a, b in zip(m2, m1))
+    ok = (loss_rel <= SHARDED_LOSS_RTOL and gn_rel <= SHARDED_GNORM_RTOL
+          and dp <= SHARDED_PARAM_ATOL_LR * lr1
+          and losses_rel <= SHARDED_LOSSES_RTOL
+          and all(np.isfinite(r["loss"]) for r in m2))
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
+    return {"arch": cfg.name, "compute_dtype": "float32", "batch": [8, 256],
+            "mesh": mesh.shape, "pieces": n_pieces,
+            "losses_one_device": [r["loss"] for r in m1],
+            "losses_sharded": [r["loss"] for r in m2],
+            "grad_norm_one_device": m1[0]["grad_norm"],
+            "grad_norm_sharded": m2[0]["grad_norm"],
+            "step1_loss_rel_err": loss_rel, "step1_grad_norm_rel_err": gn_rel,
+            "params_step1_max_abs_over_lr": dp / lr1,
+            "losses_max_rel_err": losses_rel,
+            "bars": {"loss_rtol": SHARDED_LOSS_RTOL,
+                     "grad_norm_rtol": SHARDED_GNORM_RTOL,
+                     "params_atol_over_lr": SHARDED_PARAM_ATOL_LR,
+                     "losses_rtol": SHARDED_LOSSES_RTOL},
+            "step_ms_one_device": [t * 1e3 for t in times["one_device"]],
+            "step_ms_sharded": [t * 1e3 for t in times["sharded"]],
+            "ms_per_step_one_device": med["one_device"],
+            "ms_per_step_sharded": med["sharded"],
+            "sharded_over_one_device": med["sharded"] / med["one_device"],
+            "step_peak_extra_bytes_one_device": peaks["one_device"],
+            "step_peak_extra_bytes_sharded": peaks["sharded"],
+            "peak_device_bytes_both_paths": peak_all,
+            # parameters and both moments, fp32
+            "state_bytes_one_path": 3 * 4 * n_params,
+            "ok": ok, "seconds": time.perf_counter() - t0}
+
+
+def measured_peaks() -> dict:
+    """(e) The card's own rates: an 8192^3 fp32 matmul with TF32 off, the
+    same in bf16, and a 2 GiB device-to-device copy (read + write)."""
+    n = 8192
+    a = torch.randn(n, n, device="cuda")
+    b = torch.randn(n, n, device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms32, _ = cuda_ms(lambda: a @ b, warmup=2, runs=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    ms16, _ = cuda_ms(lambda: a16 @ b16, warmup=2, runs=10)
+    del a, b, a16, b16
+    src = torch.empty(1 << 29, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    msc, _ = cuda_ms(lambda: dst.copy_(src), warmup=2, runs=10)
+    moved = 2 * src.nbytes
+    del src, dst
+    torch.cuda.empty_cache()
+    flop = 2 * n ** 3
+    return {"fp32_flops": flop / (ms32 / 1e3), "bf16_flops":
+            flop / (ms16 / 1e3), "copy_bytes_per_s": moved / (msc / 1e3),
+            "fp32_matmul_ms": ms32, "bf16_matmul_ms": ms16, "copy_ms": msc,
+            "matmul_n": n, "copy_bytes": moved}
+
+
+def roofline_check(peaks: dict, lm_train_ms: float, fp32_step_ms: float
+                   ) -> dict:
+    """(e) ``Roofline`` of ``algo_flops`` / ``algo_hbm_bytes`` on the card's
+    measured peaks, for the step ``lm_train`` runs (smollm-360m, train, seq
+    256, batch 8; bf16 compute over fp32 masters, so the bf16 rate) and for
+    (d)'s one-device fp32 step (the fp32 rate); each bound must be at most
+    the step measured in this process. One card: no link traffic, and the
+    copy rate stands for the link (shards on one card exchange through
+    its memory)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import roofline as rl
+
+    cfg = ARCHS["smollm-360m"]
+    args = ("train", 256, 8)
+    out = {}
+    for tag, peak, measured in (
+            ("lm_train_bf16", peaks["bf16_flops"], lm_train_ms),
+            ("sharded_phase_fp32_one_device", peaks["fp32_flops"],
+             fp32_step_ms)):
+        r = rl.Roofline(flops=rl.algo_flops(cfg, *args),
+                        hbm_bytes=rl.algo_hbm_bytes(cfg, *args),
+                        coll_bytes_per_dev=0.0, chips=1, peak_flops=peak,
+                        hbm_bw=peaks["copy_bytes_per_s"],
+                        link_bw=peaks["copy_bytes_per_s"],
+                        model_flops=rl.model_flops_estimate(cfg, *args))
+        d = r.to_dict()
+        out[tag] = {**d, "measured_step_ms": measured,
+                    "bound_over_measured": d["step_time_s"] * 1e3 / measured,
+                    "ok": d["step_time_s"] * 1e3 <= measured}
+    return out
+
+
+def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
+    """What exists only across devices, every shard on this card: (a) the
+    placement rules at full size on the production meshes, (b) the MoE
+    all-to-all at deepseek-v2-lite's widths, (c) int8 gradient compression
+    of a full smollm-360m gradient, (d) sharded training of full smollm-360m
+    on (2, 2), (e) the roofline on the card's measured peaks. One JSON line
+    each."""
+    t0 = time.perf_counter()
+    a = specs_at_full_size()
+    emit("lm_sharded.specs", **a)
+    b = a2a_full_width()
+    emit("lm_sharded.a2a", nvidia_smi=dev["nvidia_smi"], **b)
+    c = grad_compress_full()
+    emit("lm_sharded.grad_compress", nvidia_smi=dev["nvidia_smi"], **c)
+    d = sharded_training()
+    emit("lm_sharded.train", nvidia_smi=dev["nvidia_smi"], **d)
+    t_e = time.perf_counter()
+    peaks = measured_peaks()
+    e = roofline_check(peaks, lm_train_ms, d["ms_per_step_one_device"])
+    emit("lm_sharded.roofline", nvidia_smi=dev["nvidia_smi"], peaks=peaks,
+         rooflines=e, seconds=time.perf_counter() - t_e,
+         phase_seconds=time.perf_counter() - t0)
+    failed = [name for name, ok in (
+        ("specs", a["ok"]), ("a2a", b["ok"]), ("grad_compress", c["ok"]),
+        ("train", d["ok"]), ("roofline", all(r["ok"] for r in e.values())))
+        if not ok]
+    if failed:
+        fail(f"lm_sharded: {', '.join(failed)} failed (see their lines)")
 
 
 def main() -> None:
@@ -2052,7 +2551,8 @@ def main() -> None:
     launches += phase_planner(dev)
     launches += phase_degrade(dev)
     phase_lm_serve(dev)
-    phase_lm_train(dev)
+    lm_train_ms = phase_lm_train(dev)
+    phase_lm_sharded(dev, lm_train_ms)
     emit("total", seconds=time.perf_counter() - t_start,
          peak_host_rss_bytes=resource.getrusage(
              resource.RUSAGE_SELF).ru_maxrss * 1024)

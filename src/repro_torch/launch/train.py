@@ -4,13 +4,17 @@
         --arch smollm-360m --reduced --steps 200 --batch 16 --seq 128 \
         --ckpt-dir /tmp/run1
 
-Runs on one device: the card unless ``--device`` names another (``cpu``).
-Weights come from ``init_params(seed=0)``, batches from ``SyntheticLM``,
-fault tolerance from ``train.runner`` (auto-resume from ``--ckpt-dir``,
-async checkpoints every ``--ckpt-every`` steps, a final checkpoint on
-SIGTERM or at the end). The reference's ``(data, model)`` mesh over one
-device is a no-op; sharding the model over devices (``--model-axis`` > 1)
-is not ported.
+Runs on the visible cards unless ``--device`` names another device
+(``cpu``: one device). The reference's mesh: ``(n_dev // m, m)`` of
+``("data", "model")`` with ``m = min(--model-axis, n_dev)``; on a mesh of
+more than one device the parameters and AdamW moments are placed by
+``sharding.param_specs(fsdp=True)`` and each step is
+``make_sharded_train_step`` (batch over "data"); on one device it is
+``make_train_step``. Weights come from ``init_params(seed=0)``, batches
+from ``SyntheticLM``, fault tolerance from ``train.runner`` (auto-resume
+from ``--ckpt-dir``, async checkpoints every ``--ckpt-every`` steps, a
+final checkpoint on SIGTERM or at the end; a sharded run's checkpoint
+holds the gathered tree, in the reference's format).
 """
 from __future__ import annotations
 
@@ -19,16 +23,36 @@ import os
 import signal
 import tempfile
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..configs import ARCHS, reduced as reduce_cfg
 from ..data import DataConfig, SyntheticLM
 from ..models import init_params
+from ..distributed.mesh import Mesh
 from ..train import (
-    OptimizerConfig, RunnerConfig, TrainRunner, make_train_step,
-    optimizer as opt_lib,
+    OptimizerConfig, RunnerConfig, TrainRunner, optimizer as opt_lib,
 )
+from ..train.train_step import make_sharded_train_step, shard_train_state
+
+
+def train_mesh(device=None, model_axis: int = 1) -> Mesh:
+    """The reference's training mesh: ``(n_dev // m, m)`` ``("data",
+    "model")`` over the visible cards (``device=None`` or a CUDA device),
+    or over the one ``device`` named otherwise, ``m = min(model_axis,
+    n_dev)``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [dev]
+    n_dev = len(devices)
+    m = min(model_axis, n_dev)
+    arr = np.empty(n_dev // m * m, dtype=object)
+    arr[:] = devices[:n_dev // m * m]
+    return Mesh(arr.reshape(n_dev // m, m), ("data", "model"))
 
 
 def make_runner(argv=None):
@@ -51,23 +75,21 @@ def make_runner(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, the card)")
     args = ap.parse_args(argv)
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            "--model-axis > 1 shards the model over devices, which is not "
-            "ported yet (ROADMAP A.13d); train on one device")
 
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    dev = resolve_device(args.device)
-    print(f"[train] arch={cfg.name} device={dev} "
+    mesh = train_mesh(args.device, args.model_axis)
+    dev = mesh.first_device
+    print(f"[train] arch={cfg.name} devices={mesh.size} "
+          f"mesh={mesh.shape} device={dev} "
           f"params~{cfg.param_count() / 1e6:.1f}M")
 
     params = init_params(cfg, device=dev, seed=0)
-    opt_state = opt_lib.init(params)
+    params, opt_state = shard_train_state(params, opt_lib.init(params), mesh)
     ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
                            total_steps=args.steps)
-    step_fn = make_train_step(cfg, ocfg)
+    step_fn = make_sharded_train_step(cfg, ocfg, mesh)
     data = SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
     ))

@@ -6,10 +6,11 @@ tokens beyond expert capacity are dropped (their combine weight is zeroed) —
 GShard semantics. Shared experts (DeepSeek) run densely over all tokens.
 
 The load-balance auxiliary loss (Switch-style) is returned beside the
-output. This is the reference's ``moe_impl="gspmd"`` path; its expert-
-parallel all-to-all (``moe_apply_a2a``) needs a mesh and is not here, so a
-config with ``moe_impl="a2a"`` runs ``moe_apply``, as the reference does
-when no mesh is set.
+output. ``moe_apply`` is the reference's ``moe_impl="gspmd"`` path;
+``moe_apply_a2a`` its expert-parallel all-to-all over the shards of a
+``Mesh``, which ``transformer.apply_channel`` runs for a config with
+``moe_impl="a2a"`` under an active ``sharding.hint_mesh`` (without one such
+a config runs ``moe_apply``, as the reference does).
 """
 from __future__ import annotations
 
@@ -19,6 +20,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
+from ..distributed import collectives
+from ..distributed import sharding as _sh
 from . import layers
 
 _F32 = torch.float32
@@ -44,6 +49,33 @@ def moe_init(gen: torch.Generator, cfg) -> dict:
     return p
 
 
+def _route(xt, router, K: int):
+    """Router softmax, top-k and renormalised gates: (probs (T, E), gate
+    values (T, K), expert ids (T, K))."""
+    logits = xt.to(_F32) @ router.to(_F32)
+    probs = torch.softmax(logits, dim=-1)                      # (T, E)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)       # (T, K)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)             # renormalize
+    return probs, gate_vals, expert_idx
+
+
+def _capacity(n: int, cfg, groups: int) -> int:
+    """Slots per group (expert or destination rank) for ``n`` tokens: the
+    reference's ``max(8, ceil8(ceil(n K cf / groups)))``."""
+    c = int(math.ceil(n * cfg.top_k * cfg.capacity_factor / groups))
+    return max(8, -(-c // 8) * 8)
+
+
+def _slots(idx, groups: int, cap: int):
+    """Position of each (token, slot) within its group by a running count,
+    and whether it fits: (keep, safe position)."""
+    oh = F.one_hot(idx, groups)                                # (T*K, G)
+    pos = torch.gather(torch.cumsum(oh, dim=0) - oh, 1, idx[:, None])[:, 0]
+    keep = pos < cap
+    return keep, torch.where(keep, pos, cap - 1)
+
+
 def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss)."""
     dt = x.dtype
@@ -52,11 +84,7 @@ def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     T = B * S
     xt = x.reshape(T, D)
 
-    logits = xt.to(_F32) @ p["router"].to(_F32)
-    probs = torch.softmax(logits, dim=-1)                      # (T, E)
-    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)       # (T, K)
-    gate_vals = gate_vals / torch.clamp(
-        gate_vals.sum(-1, keepdim=True), min=1e-9)             # renormalize
+    probs, gate_vals, expert_idx = _route(xt, p["router"], K)
 
     # Switch-style load-balance loss
     me = probs.mean(0)                                         # (E,)
@@ -64,18 +92,12 @@ def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
     # ---- capacity dispatch ------------------------------------------------
-    C = int(math.ceil(T * K * cfg.capacity_factor / E))
-    C = max(8, -(-C // 8) * 8)
+    C = _capacity(T, cfg, E)
     flat_e = expert_idx.reshape(-1)                            # (T*K,)
-    # position of each (token, slot) within its expert: running count
-    eo = F.one_hot(flat_e, E)                                  # (T*K, E)
-    pos_in_e = torch.cumsum(eo, dim=0) - eo                    # exclusive
-    pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
-    keep = pos < C
+    keep, safe_pos = _slots(flat_e, E, C)
     gate_keep = torch.where(keep.reshape(T, K), gate_vals.to(_F32), 0.0)
 
     # scatter tokens into (E, C, D) buffers
-    safe_pos = torch.where(keep, pos, C - 1)
     src = torch.repeat_interleave(xt, K, dim=0)                # (T*K, D)
     src = torch.where(keep[:, None], src, 0)
     buf = torch.zeros((E, C, D), dtype=dt, device=x.device)
@@ -99,3 +121,125 @@ def expert_load_counts(cfg, p, x) -> torch.Tensor:
     logits = x.reshape(T, -1).to(_F32) @ p["router"].to(_F32)
     top1 = torch.argmax(logits, -1)
     return torch.bincount(top1, minlength=cfg.n_experts)
+
+
+# ---------------------------------------------------------------- a2a MoE
+def a2a_applies(cfg, x_shape, mesh) -> bool:
+    """Whether ``moe_apply_a2a`` exchanges over ``mesh`` for an input of
+    ``x_shape``; otherwise it is ``moe_apply`` (the reference's rule)."""
+    B, S = x_shape[0], x_shape[1]
+    bd = _sh.batch_axes(mesh)
+    M = mesh.shape.get(_sh.TP, 1)
+    n_bd = int(np.prod([mesh.shape[a] for a in bd])) if bd else 1
+    return not (M == 1 or cfg.n_experts % M or (B * S // max(n_bd, 1)) % M)
+
+
+def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with an explicit all-to-all exchange between the
+    shards of ``mesh``, the reference's ``shard_map`` path.
+
+    The tokens are split over the batch axes, then over "model": each rank
+    routes its ``T2`` tokens (``moe_apply``'s softmax, top-k and
+    renormalisation), fills one ``(C2, D)`` send buffer per destination
+    rank (``C2`` slots, ``_capacity(T2, cfg, M)``), ``all_to_all``
+    exchanges them, each rank runs every one of its ``E/M`` local experts
+    on the whole received buffer and selects per row (the reference's
+    overcompute), a second ``all_to_all`` sends the results back, the gates
+    weight them and ``all_gather`` over "model" makes each batch shard's
+    output whole. The load-balance aux uses global means (a sum over every
+    shard, over ``T``). Shards run one after another in row-major order on
+    their devices; the weights are whole tensors, each rank reading its
+    experts' slice. Falls back to ``moe_apply`` when the reference does
+    (``a2a_applies``)."""
+    if not a2a_applies(cfg, x.shape, mesh):
+        return moe_apply(cfg, p, x)
+    dt = x.dtype
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    bd = _sh.batch_axes(mesh)
+    M = mesh.shape[_sh.TP]
+    n_bd = int(np.prod([mesh.shape[a] for a in bd])) if bd else 1
+    if T % n_bd:
+        raise ValueError(f"{T} tokens do not split over the batch axes "
+                         f"{bd} of size {n_bd}")
+    E_loc = E // M
+    T_loc = T // n_bd
+    T2 = T_loc // M
+    C2 = _capacity(T2, cfg, M)
+    devs = np.asarray(mesh.devices_of(bd + (_sh.TP,)),
+                      dtype=object).reshape(n_bd, M)
+    xt = x.reshape(T, D)
+
+    shape = (n_bd, M)
+    route = np.empty(shape, dtype=object)
+    send = np.empty(shape, dtype=object)
+    send_e = np.empty(shape, dtype=object)
+    me_sum = np.empty(shape, dtype=object)
+    ce_sum = np.empty(shape, dtype=object)
+    for b, m in np.ndindex(shape):
+        dev = devs[b, m]
+        lo = b * T_loc + m * T2
+        x_my = xt[lo:lo + T2].to(dev)
+        probs, gate_vals, eidx = _route(x_my, p["router"].to(dev), K)
+        me_sum[b, m] = probs.sum(0)
+        ce_sum[b, m] = F.one_hot(eidx[:, 0], E).to(_F32).sum(0)
+
+        flat_e = eidx.reshape(-1)                              # (T2*K,)
+        dest = flat_e // E_loc                                 # rank
+        e_loc = flat_e % E_loc                                 # local expert
+        keep, safe_pos = _slots(dest, M, C2)
+        gate_keep = torch.where(keep.reshape(T2, K), gate_vals.to(_F32),
+                                0.0)
+        src = torch.repeat_interleave(x_my, K, dim=0)
+        src = torch.where(keep[:, None], src, 0)
+        # a dropped (token, slot) adds zeros to a slot at most one kept one
+        # fills, so the sum is exact in any order
+        send[b, m] = torch.zeros((M, C2, D), dtype=dt, device=dev).index_put(
+            (dest, safe_pos), src, accumulate=True)
+        flat_slot = dest * C2 + safe_pos
+        send_e[b, m] = torch.zeros(M * C2, dtype=torch.int64,
+                                   device=dev).scatter_reduce(
+            0, flat_slot, torch.where(keep, e_loc, 0), "amax").reshape(M, C2)
+        route[b, m] = (dest, safe_pos, gate_keep)
+
+    # load-balance aux from the global means
+    t = torch.tensor(float(T), dtype=_F32, device=devs[0, 0])
+    me = collectives.psum(me_sum, (0, 1)).item() / t
+    ce = collectives.psum(ce_sum, (0, 1)).item() / t
+    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+
+    recv = collectives.all_to_all(send, 1)
+    recv_e = collectives.all_to_all(send_e, 1)
+    out = np.empty(shape, dtype=object)
+    for b, m in np.ndindex(shape):
+        dev = devs[b, m]
+        tok = recv[b, m].reshape(M * C2, D)
+        sel = recv_e[b, m].reshape(-1)
+        wg, wu, wo = (p[k][m * E_loc:(m + 1) * E_loc].to(dev)
+                      for k in ("wg", "wu", "wo"))
+
+        def one_expert(le):
+            g = F.silu(tok @ wg[le].to(dt))
+            u = tok @ wu[le].to(dt)
+            return (g * u) @ wo[le].to(dt)
+
+        yb = one_expert(0)
+        for le in range(1, E_loc):
+            yb = torch.where((sel == le)[:, None], one_expert(le), yb)
+        out[b, m] = yb.reshape(M, C2, D)
+
+    back = collectives.all_to_all(out, 1)
+    y_my = np.empty(shape, dtype=object)
+    for b, m in np.ndindex(shape):
+        dest, safe_pos, gate_keep = route[b, m]
+        y_tok = back[b, m][dest, safe_pos].reshape(T2, K, D)
+        y_my[b, m] = torch.einsum("tkd,tk->td", y_tok.to(_F32),
+                                  gate_keep).to(dt)
+    y_loc = np.empty(n_bd, dtype=object)
+    for b in range(n_bd):
+        y_loc[b] = collectives.all_gather(y_my[b], 0)          # (T_loc, D)
+    y = collectives.all_gather(y_loc, 0).to(x.device).reshape(B, S, D)
+    if cfg.n_shared_experts:
+        y = y + layers.mlp_apply(cfg, p["shared"], x)
+    return y, aux.to(x.device)

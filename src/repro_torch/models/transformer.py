@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import _device
+from ..distributed import sharding as _sh
 from . import attention, layers, mla, moe, rwkv, ssm
 
 _F32 = torch.float32
@@ -139,13 +140,21 @@ def _apply_mixer(cfg, p, x, positions):
 def apply_channel(cfg, params, p, x, layer_idx: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The channel mixer of layer ``layer_idx``; returns (out, aux). A MoE
-    config's first dense layers use ``params["dense_mlp"]``."""
+    config's first dense layers use ``params["dense_mlp"]``, and its routed
+    layers ``moe_apply``; without first dense layers, a config with
+    ``moe_impl="a2a"`` under an active ``sharding.hint_mesh`` runs
+    ``moe_apply_a2a`` over that mesh (the reference's routing)."""
     zero = torch.zeros((), dtype=_F32, device=x.device)
     if cfg.mlp == "moe":
         if cfg.first_dense_layers > 0 and "dense_mlp" in params:
             if layer_idx < cfg.first_dense_layers:
                 dp = layer(params["dense_mlp"], layer_idx)
                 return layers.mlp_apply(cfg, dp, x), zero
+            return moe.moe_apply(cfg, p["moe"], x)
+        if cfg.moe_impl == "a2a":
+            mesh = _sh.active_mesh()
+            if mesh is not None:
+                return moe.moe_apply_a2a(cfg, p["moe"], x, mesh)
         return moe.moe_apply(cfg, p["moe"], x)
     if cfg.mlp == "rwkv6_cmix":
         return rwkv.cmix_apply(cfg, p["cmix"], x), zero

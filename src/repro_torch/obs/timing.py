@@ -28,12 +28,16 @@ def _cuda_devices(x: Any, found: set) -> set:
     elif isinstance(x, (list, tuple)):
         for v in x:
             _cuda_devices(v, found)
+    elif hasattr(x, "pieces"):          # distributed.sharding.Sharded
+        for v in x.pieces.flat:
+            _cuda_devices(v, found)
     return found
 
 
 def block_until_ready(x: Any) -> Any:
     """Wait until the card has finished every CUDA tensor in ``x`` (walking
-    tuples, lists and dicts); identity for anything else."""
+    tuples, lists, dicts and the pieces of sharded leaves); identity for
+    anything else."""
     for dev in _cuda_devices(x, set()):
         torch.cuda.synchronize(dev)
     return x

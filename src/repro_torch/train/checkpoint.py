@@ -24,7 +24,10 @@ Resilience, as the reference's:
   * ``AsyncCheckpointer`` snapshots to host memory on the caller's thread
     (the device-to-host copy is the sync point) and writes on a thread.
 
-Restore puts each leaf on the device of the template's leaf.
+Restore puts each leaf on the device of the template's leaf. A sharded
+leaf (``distributed.sharding.Sharded``, the pieces of a parameter on a mesh)
+is saved gathered whole, so the file is the reference's whatever the mesh,
+and restored by cutting it again by the template leaf's spec and mesh.
 
 The ``.npz`` is written and read here rather than by ``np.savez`` /
 ``np.load``, which copy each array in 16 MiB pieces and check each member's
@@ -55,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..distributed.sharding import Sharded, gather, shard
 from ..resilience import faults as _faults
 from ..resilience import retry as _retry
 from ..resilience.errors import CheckpointCorruptError
@@ -100,6 +104,8 @@ class _HostLeaf:
     array (a bf16 leaf as its ``uint8`` byte view), dtype name and shape."""
 
     def __init__(self, leaf):
+        if isinstance(leaf, Sharded):
+            leaf = gather(leaf)
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach().to("cpu", copy=True).contiguous()
             self.dtype = str(t.dtype).removeprefix("torch.")
@@ -480,11 +486,16 @@ def _load_step(path: str, template: Any) -> Tuple[Any, dict]:
         for k, arr in _npz_arrays(apath, data, want is None).items():
             key = k.replace("__", "/")
             flat[key] = _decode(arr, dtypes.get(key), shapes.get(key))
-    where = {k: (v.device if isinstance(v, torch.Tensor)
-                 else torch.device("cpu"))
-             for k, v in _flatten(template).items()}
+
+    def place(t, like):
+        if isinstance(like, Sharded):
+            return shard(t, like.spec, like.mesh)
+        return t.to(like.device if isinstance(like, torch.Tensor)
+                    else torch.device("cpu"))
+
     with obs.span("ckpt.place"):
-        placed = {k: flat[k].to(d) for k, d in where.items()}
+        placed = {k: place(flat[k], v)
+                  for k, v in _flatten(template).items()}
     return _unflatten_into(template, placed), manifest
 
 

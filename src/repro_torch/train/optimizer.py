@@ -90,29 +90,57 @@ def global_norm(tree) -> torch.Tensor:
                           for g in sorted_leaves(tree)))
 
 
+class StepScalars(NamedTuple):
+    """What every leaf's update reads: the clip scale, the new step count,
+    its learning rate and the two bias corrections (0-dim, one device)."""
+    scale: torch.Tensor
+    step: torch.Tensor
+    lr: torch.Tensor
+    bc1: torch.Tensor
+    bc2: torch.Tensor
+
+    def to(self, device) -> "StepScalars":
+        return StepScalars(*(t.to(device) for t in self))
+
+
+def step_scalars(cfg: OptimizerConfig, gnorm: torch.Tensor,
+                 state_step: torch.Tensor) -> StepScalars:
+    dev = gnorm.device
+    scale = torch.clamp(_f32(cfg.clip_norm, dev)
+                        / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = state_step.to(dev) + 1
+    lr = lr_at(cfg, step)
+    bc1 = 1 - torch.pow(_f32(cfg.b1, dev), step.to(_F32))
+    bc2 = 1 - torch.pow(_f32(cfg.b2, dev), step.to(_F32))
+    return StepScalars(scale, step, lr, bc1, bc2)
+
+
+def adamw_leaf(cfg: OptimizerConfig, sc: StepScalars, p, g, m, v,
+               decay: bool):
+    """AdamW on one tensor (a whole leaf, or a piece of one): new
+    (parameter, first moment, second moment). ``decay`` says whether the
+    leaf is a matrix (weight decay applies) or a norm / bias."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.to(_F32) * sc.scale
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * torch.square(g)
+    upd = (m / sc.bc1) / (torch.sqrt(v / sc.bc2) + cfg.eps)
+    wd = cfg.weight_decay if decay else 0.0
+    new_p = p.to(_F32) - sc.lr * (upd + wd * p.to(_F32))
+    return new_p.to(p.dtype), m, v
+
+
 @torch.no_grad()
 def update(cfg: OptimizerConfig, params, grads,
            state: OptState) -> Tuple[Any, OptState, dict]:
     """One AdamW step. Returns (new_params, new_state, metrics); the inputs
     are left as they are."""
     gnorm = global_norm(grads)
-    dev = gnorm.device
-    scale = torch.clamp(_f32(cfg.clip_norm, dev)
-                        / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
-    lr = lr_at(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(_f32(b1, dev), step.to(_F32))
-    bc2 = 1 - torch.pow(_f32(b2, dev), step.to(_F32))
+    sc = step_scalars(cfg, gnorm, state.step)
+    step, lr = sc.step, sc.lr
 
     def leaf(p, g, m, v):
-        g = g.to(_F32) * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * torch.square(g)
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        decay = cfg.weight_decay if p.ndim >= 2 else 0.0
-        new_p = p.to(_F32) - lr * (upd + decay * p.to(_F32))
-        return new_p.to(p.dtype), m, v
+        return adamw_leaf(cfg, sc, p, g, m, v, decay=p.ndim >= 2)
 
     out = tree_map(leaf, params, grads, state.mu, state.nu)
 

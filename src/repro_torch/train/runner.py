@@ -1,7 +1,8 @@
 """Fault-tolerant training runner.
 
-Wraps the functional train step with the reference runner's operational
-machinery:
+Wraps the functional train step (one device, or ``make_sharded_train_step``
+on a mesh, whose ``Sharded`` leaves the checkpoints gather and cut again)
+with the reference runner's operational machinery:
 
   * auto-resume from the latest checkpoint (crash / preemption restart)
   * periodic async checkpoints (the step does not wait for the write)

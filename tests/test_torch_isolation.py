@@ -38,18 +38,19 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
-    assert n >= 58, proc.stdout
+    assert n >= 63, proc.stdout
 
 
 def test_distributed_modules_stand_alone():
-    """The mesh, collectives, strategies, placement and coloring modules are
-    imported with jax unimportable, and bring in neither jax nor the
-    reference."""
+    """The mesh, collectives, strategies, placement, sharding-rule and
+    coloring modules are imported with jax unimportable, and bring in
+    neither jax nor the reference."""
     probe = _PROBE + r"""
 want = {"repro_torch.distributed", "repro_torch.distributed.mesh",
         "repro_torch.distributed.collectives",
         "repro_torch.distributed.stkde_dist",
-        "repro_torch.distributed.partition", "repro_torch.core.coloring"}
+        "repro_torch.distributed.partition",
+        "repro_torch.distributed.sharding", "repro_torch.core.coloring"}
 print("MISSING", sorted(want - set(names)))
 """
     proc = subprocess.run(
@@ -63,8 +64,10 @@ print("MISSING", sorted(want - set(names)))
 
 def test_lm_modules_stand_alone():
     """The language models, their configs, the serving engine, the training
-    stack, its data stream and the launch entry points are imported with jax
-    unimportable, and bring in neither jax nor the reference."""
+    stack (gradient compression included), its data stream, the launch
+    entry points and the launch arithmetic (mesh shapes, shape specs,
+    roofline) are imported with jax unimportable, and bring in neither jax
+    nor the reference."""
     probe = _PROBE + r"""
 want = {"repro_torch.models", "repro_torch.models.config",
         "repro_torch.models.layers", "repro_torch.models.attention",
@@ -77,7 +80,9 @@ want = {"repro_torch.models", "repro_torch.models.config",
         "repro_torch.train.train_step", "repro_torch.train.checkpoint",
         "repro_torch.train.runner", "repro_torch.data",
         "repro_torch.data.pipeline", "repro_torch.launch",
-        "repro_torch.launch.train", "repro_torch.launch.serve"}
+        "repro_torch.launch.train", "repro_torch.launch.serve",
+        "repro_torch.train.grad_compress", "repro_torch.launch.mesh",
+        "repro_torch.launch.specs", "repro_torch.launch.roofline"}
 print("MISSING", sorted(want - set(names)))
 """
     proc = subprocess.run(

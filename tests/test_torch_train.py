@@ -781,10 +781,15 @@ def test_launch_train_cli_runs_and_resumes(tmp_path, capsys):
     assert "resumed from step 4" in capsys.readouterr().out
 
 
-def test_launch_train_refuses_a_model_axis(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.13d"):
-        launch_train.main(["--reduced", "--device", "cpu", "--model-axis",
-                           "2", "--ckpt-dir", str(tmp_path)])
+def test_launch_train_refuses_a_model_axis(tmp_path, capsys):
+    """A model axis wider than the devices is cut to them, as the
+    reference's ``min(--model-axis, n_dev)``: one CPU device trains on a
+    (1, 1) mesh, with the one-device step."""
+    out = launch_train.main(["--reduced", "--device", "cpu", "--model-axis",
+                             "2", "--steps", "2", "--batch", "2", "--seq",
+                             "16", "--ckpt-dir", str(tmp_path)])
+    assert out["final_step"] == 2 and np.isfinite(out["last_loss"])
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
 
 
 def test_launch_serve_cli():
