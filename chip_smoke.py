@@ -47,8 +47,10 @@ the ten configs at full size on the production meshes, the MoE all-to-all
 at ``deepseek-v2-lite-16b``'s published widths against ``moe_apply``
 (output, aux, gradients) and reduced ``dbrx-132b`` under a hint mesh, int8
 gradient compression of a full ``smollm-360m`` gradient on 4 shards, full
-``smollm-360m`` trained on a (2, 2) mesh against the one-device step, and
-the roofline bound on the card's measured peaks against the measured
+``smollm-360m`` trained on a (2, 2) mesh against the one-device step,
+``deepseek-v2-lite-16b`` at its published widths (2 layers) trained on a
+(2, 2) mesh, two batch shards with the global expert capacity, against the
+one-device step (routing equal exactly), and the roofline bound on the card's measured peaks against the measured
 steps. The tile branch buckets its points on the
 card; its buckets are held bit for bit against the host's numpy bucketing at
 both full-size rows.
@@ -2067,6 +2069,13 @@ SHARDED_LOSSES_RTOL = 1e-3
 SHARDED_STEPS = 3
 SHARDED_TIMED = 3     # more steps of each path, timed only
 GC_SHARDS = 4
+# MoE training on (2, 2) (the same bars as SHARDED_*): deepseek-v2-lite-16b
+# at its published widths, its depth cut to the first (dense) layer and one
+# MoE layer, one (4, 512) batch
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_LAYERS = 2
+MOE_BATCH = (4, 512)
+MOE_MESH = (2, 2)
 
 
 def card_mesh(shape, names) -> "object":
@@ -2445,6 +2454,137 @@ def sharded_training() -> dict:
             "ok": ok, "seconds": time.perf_counter() - t0}
 
 
+def routes_by_layer(routes: list, n_shards: int) -> dict:
+    """``moe.recording_routes``'s list of ``n_shards`` forwards in turn,
+    joined per MoE layer over the shards: ``{key: [(T, K) per layer]}``."""
+    n = len(routes) // n_shards
+    return {key: [torch.cat([routes[k * n + i][key] for k in range(n_shards)])
+                  for i in range(n)] for key in ("expert", "keep", "slot")}
+
+
+def moe_sharded_training() -> dict:
+    """(f) ``deepseek-v2-lite-16b`` at its published widths (64 experts
+    top-6, 2 shared, d_model 2048, vocab 102,400, MLA), depth cut to 2
+    layers (the first dense layer and one MoE layer), fp32 compute, one
+    (4, 512) batch of ``SyntheticLM``: ``make_sharded_train_step`` on a
+    (2, 2) ("data", "model") mesh on the card (two batch shards, the
+    reference's global expert capacity and load-balance loss) against
+    ``make_train_step`` from the same weights. The one-device step runs
+    first and its state is freed before the sharded one's is made. Each
+    path: one warm-up step, then one step timed by CUDA events from the
+    same state; the step-1 loss, grad norm and parameters compared, the MoE
+    layer's routing (expert ids, keep masks, slots) compared exactly, its
+    drops counted; a control with each batch shard's capacity sized and
+    counted from its own tokens; the peak device memory of each path."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import forward, init_params, moe
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              shard_train_state)
+
+    t0 = time.perf_counter()
+    full = ARCHS[MOE_ARCH]
+    cfg = full.replace(n_layers=MOE_LAYERS, compute_dtype="float32")
+    ocfg = OptimizerConfig(lr=3e-3, warmup_steps=10, total_steps=20)
+    mesh = card_mesh(MOE_MESH, ("data", "model"))
+    n_bd = MOE_MESH[0]
+    torch.cuda.empty_cache()
+    params = init_params(cfg, device="cuda", seed=0)
+    n_params = sum(a.numel() for _, a in sorted_paths(params))
+    b = {k: v.cuda() for k, v in train_batch(
+        cfg, seed=0, batch=MOE_BATCH[0], seq=MOE_BATCH[1]).items()}
+    T = b["tokens"].numel()
+
+    def timed(step, p, s):
+        step(p, s, b)                               # warm-up, dropped
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with moe.recording_routes() as routes:
+            start.record()
+            out = step(p, s, b)
+            end.record()
+        torch.cuda.synchronize()
+        return out[0], out[2], start.elapsed_time(end), routes
+
+    st = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p1, m1, ms1, r1 = timed(make_train_step(cfg, ocfg), params, st)
+    peak1 = torch.cuda.max_memory_allocated()
+    del st
+    # the control: each batch shard sizes and counts its own capacity
+    rows = MOE_BATCH[0] // n_bd
+    with torch.no_grad(), moe.recording_routes() as rc:
+        for k in range(n_bd):
+            forward(cfg, params, b["tokens"][k * rows:(k + 1) * rows])
+    ps, ss = shard_train_state(params, opt.init(params), mesh)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p2, m2, ms2, r2 = timed(make_sharded_train_step(cfg, ocfg, mesh), ps, ss)
+    peak2 = torch.cuda.max_memory_allocated()
+    del ps, ss
+    lr1 = float(opt.lr_at(ocfg, 1))
+    dp = max(float((sh.gather(a) - w).abs().max())
+             for (_, a), (_, w) in zip(sorted_paths(p2), sorted_paths(p1)))
+    del p1, p2
+    torch.cuda.empty_cache()
+    one, many, ctl = (routes_by_layer(r1, 1), routes_by_layer(r2, n_bd),
+                      routes_by_layer(rc, n_bd))
+    same = {key: len(one[key]) == len(many[key]) > 0 and all(
+        torch.equal(a, w) for a, w in zip(many[key], one[key]))
+        for key in one}
+    dropped = {name: [int((~k).sum()) for k in r["keep"]]
+               for name, r in (("one_device", one), ("sharded", many),
+                               ("per_shard_capacity", ctl))}
+    control_differs = any(not torch.equal(a, w)
+                          for a, w in zip(ctl["keep"], one["keep"]))
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(
+        float(m1["loss"]))
+    gn_rel = abs(float(m2["grad_norm"]) - float(m1["grad_norm"])) / float(
+        m1["grad_norm"])
+    ok = (loss_rel <= SHARDED_LOSS_RTOL and gn_rel <= SHARDED_GNORM_RTOL
+          and dp <= SHARDED_PARAM_ATOL_LR * lr1 and all(same.values())
+          and dropped["sharded"] == dropped["one_device"]
+          and all(np.isfinite(float(m[k])) for m in (m1, m2)
+                  for k in ("loss", "aux", "grad_norm")))
+    return {"arch": full.name, "compute_dtype": "float32",
+            "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                        "why": "depth only: the first (dense) layer and "
+                               "one MoE layer; widths as published"},
+            "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+            "n_shared_experts": cfg.n_shared_experts,
+            "d_model": cfg.d_model, "d_ff_expert": cfg.d_ff_expert,
+            "vocab": cfg.vocab, "params": n_params,
+            "param_bytes": 4 * n_params, "batch": list(MOE_BATCH),
+            "tokens": T, "mesh": mesh.shape,
+            "capacity_factor": cfg.capacity_factor,
+            "expert_capacity": moe._capacity(T, cfg, cfg.n_experts),
+            "per_shard_capacity": moe._capacity(T // n_bd, cfg,
+                                                cfg.n_experts),
+            "loss_one_device": float(m1["loss"]),
+            "loss_sharded": float(m2["loss"]),
+            "aux_one_device": float(m1["aux"]),
+            "aux_sharded": float(m2["aux"]),
+            "grad_norm_one_device": float(m1["grad_norm"]),
+            "grad_norm_sharded": float(m2["grad_norm"]),
+            "step1_loss_rel_err": loss_rel, "step1_grad_norm_rel_err": gn_rel,
+            "params_step1_max_abs_over_lr": dp / lr1,
+            "routing_equal": same, "dropped_slots": dropped,
+            "per_shard_capacity_keep_differs": control_differs,
+            "bars": {"loss_rtol": SHARDED_LOSS_RTOL,
+                     "grad_norm_rtol": SHARDED_GNORM_RTOL,
+                     "params_atol_over_lr": SHARDED_PARAM_ATOL_LR,
+                     "routing": "equal"},
+            "step_ms_one_device": ms1, "step_ms_sharded": ms2,
+            "sharded_over_one_device": ms2 / ms1,
+            "peak_device_bytes_one_device": peak1,
+            "peak_device_bytes_sharded": peak2,
+            "ok": ok, "seconds": time.perf_counter() - t0}
+
+
 def measured_peaks() -> dict:
     """(e) The card's own rates: an 8192^3 fp32 matmul with TF32 off, the
     same in bf16, and a 2 GiB device-to-device copy (read + write)."""
@@ -2510,8 +2650,9 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
     placement rules at full size on the production meshes, (b) the MoE
     all-to-all at deepseek-v2-lite's widths, (c) int8 gradient compression
     of a full smollm-360m gradient, (d) sharded training of full smollm-360m
-    on (2, 2), (e) the roofline on the card's measured peaks. One JSON line
-    each."""
+    on (2, 2), (f) MoE training of deepseek-v2-lite-16b (2 layers) on (2, 2)
+    with the global expert capacity, (e) the roofline on the card's
+    measured peaks. One JSON line each."""
     t0 = time.perf_counter()
     a = specs_at_full_size()
     emit("lm_sharded.specs", **a)
@@ -2521,6 +2662,8 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
     emit("lm_sharded.grad_compress", nvidia_smi=dev["nvidia_smi"], **c)
     d = sharded_training()
     emit("lm_sharded.train", nvidia_smi=dev["nvidia_smi"], **d)
+    f = moe_sharded_training()
+    emit("lm_sharded.moe_train", nvidia_smi=dev["nvidia_smi"], **f)
     t_e = time.perf_counter()
     peaks = measured_peaks()
     e = roofline_check(peaks, lm_train_ms, d["ms_per_step_one_device"])
@@ -2529,7 +2672,8 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
          phase_seconds=time.perf_counter() - t0)
     failed = [name for name, ok in (
         ("specs", a["ok"]), ("a2a", b["ok"]), ("grad_compress", c["ok"]),
-        ("train", d["ok"]), ("roofline", all(r["ok"] for r in e.values())))
+        ("train", d["ok"]), ("moe_train", f["ok"]),
+        ("roofline", all(r["ok"] for r in e.values())))
         if not ok]
     if failed:
         fail(f"lm_sharded: {', '.join(failed)} failed (see their lines)")

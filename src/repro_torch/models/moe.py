@@ -7,6 +7,9 @@ GShard semantics. Shared experts (DeepSeek) run densely over all tokens.
 
 The load-balance auxiliary loss (Switch-style) is returned beside the
 output. ``moe_apply`` is the reference's ``moe_impl="gspmd"`` path;
+under ``global_dispatch`` it is one batch shard's part of that path on the
+global batch (the sharded train step runs the shards in turn and adds up
+``global_aux``);
 ``moe_apply_a2a`` its expert-parallel all-to-all over the shards of a
 ``Mesh``, which ``transformer.apply_channel`` runs for a config with
 ``moe_impl="a2a"`` under an active ``sharding.hint_mesh`` (without one such
@@ -14,8 +17,10 @@ a config runs ``moe_apply``, as the reference does).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,34 +72,136 @@ def _capacity(n: int, cfg, groups: int) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _slots(idx, groups: int, cap: int):
-    """Position of each (token, slot) within its group by a running count,
-    and whether it fits: (keep, safe position)."""
+def _slots(idx, groups: int, cap: int, offset=None):
+    """Position of each (token, slot) within its group by a running count
+    (after ``offset[g]`` slots of group ``g`` that earlier tokens took), and
+    whether it fits: (keep, safe position)."""
     oh = F.one_hot(idx, groups)                                # (T*K, G)
     pos = torch.gather(torch.cumsum(oh, dim=0) - oh, 1, idx[:, None])[:, 0]
+    if offset is not None:
+        pos = pos + offset[idx]
     keep = pos < cap
     return keep, torch.where(keep, pos, cap - 1)
 
 
+# ------------------------------------------------- global dispatch by shard
+class Dispatch:
+    """One batch shard's part of a MoE dispatch over the global batch, for
+    ``global_dispatch``.
+
+    ``n_tokens`` is the global batch's token count, which sets the expert
+    capacity. ``offsets[l]`` is, for the ``l``-th ``moe_apply`` call of the
+    forward, the ``(E,)`` int64 count of (token, slot)s that the earlier
+    batch shards (the global tokens before this shard's) sent to each
+    expert; empty for the first shard. The forward fills, per call,
+    ``counts`` (this shard's own ``(E,)`` counts), ``me_sum`` (its router
+    probabilities summed over its tokens, in the autograd graph) and
+    ``ce_sum`` (its top-1 choices counted, fp32)."""
+
+    def __init__(self, n_tokens: int, offsets: Sequence[torch.Tensor] = ()):
+        self.n_tokens = int(n_tokens)
+        self.offsets = list(offsets)
+        self.counts: List[torch.Tensor] = []
+        self.me_sum: List[torch.Tensor] = []
+        self.ce_sum: List[torch.Tensor] = []
+
+    def carried(self, device) -> List[torch.Tensor]:
+        """The next batch shard's ``offsets``, on ``device``: this shard's
+        added to its own (the exclusive scan over the shards)."""
+        if not self.offsets:
+            return [c.to(device) for c in self.counts]
+        return [(o + c).to(device) for o, c in zip(self.offsets,
+                                                    self.counts)]
+
+
+_DISPATCH: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_dispatch", default=None)
+_ROUTES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_routes", default=None)
+
+
+@contextlib.contextmanager
+def global_dispatch(d: Dispatch):
+    """Run ``moe_apply`` as batch shard ``d`` of the global batch: the
+    capacity from ``d.n_tokens``, each (token, slot)'s position within its
+    expert offset by ``d.offsets``, so the keep masks and slots are the
+    global call's rows for this shard's tokens. The returned aux is zero;
+    ``global_aux`` forms the global one from the shards' ``Dispatch``es."""
+    tok = _DISPATCH.set(d)
+    try:
+        yield d
+    finally:
+        _DISPATCH.reset(tok)
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Collect the routing of every ``moe_apply`` call made inside: a list
+    with one dict per call, in call order, of ``(T, K)`` tensors
+    ``expert`` (ids), ``keep`` (bool) and ``slot`` (position within the
+    expert, ``C - 1`` where dropped)."""
+    out: List[dict] = []
+    tok = _ROUTES.set(out)
+    try:
+        yield out
+    finally:
+        _ROUTES.reset(tok)
+
+
+def global_aux(cfg, shards: Sequence[Dispatch], device) -> torch.Tensor:
+    """The global batch's load-balance loss from its shards' ``Dispatch``es
+    (in row-major order): per ``moe_apply`` call ``coef E sum(me ce)`` with
+    ``me``, ``ce`` the shards' sums added in order on ``device`` over the
+    global token count, summed over the calls in order (the forward's
+    aux)."""
+    E = cfg.n_experts
+    t = torch.tensor(float(shards[0].n_tokens), dtype=_F32, device=device)
+    aux = torch.zeros((), dtype=_F32, device=device)
+    for layer in range(len(shards[0].me_sum)):
+        me, ce = (collectives.psum(collectives.shard_array(
+            [getattr(d, k)[layer] for d in shards]), 0).item() / t
+            for k in ("me_sum", "ce_sum"))
+        aux = aux + cfg.router_aux_coef * E * torch.sum(me * ce)
+    return aux
+
+
 def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss)."""
+    """x: (B, S, D) -> (out, aux_loss). Under ``global_dispatch``, this
+    call is one batch shard of the global batch (its aux is zero)."""
     dt = x.dtype
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
+    disp: Optional[Dispatch] = _DISPATCH.get()
 
     probs, gate_vals, expert_idx = _route(xt, p["router"], K)
-
-    # Switch-style load-balance loss
-    me = probs.mean(0)                                         # (E,)
-    ce = F.one_hot(expert_idx[:, 0], E).to(_F32).mean(0)
-    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    top1 = F.one_hot(expert_idx[:, 0], E).to(_F32)
+    flat_e = expert_idx.reshape(-1)                            # (T*K,)
+    if disp is None:
+        # Switch-style load-balance loss
+        me = probs.mean(0)                                     # (E,)
+        ce = top1.mean(0)
+        aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+        C, off = _capacity(T, cfg, E), None
+    else:
+        # the global call's capacity and slots: this shard's tokens come
+        # after the earlier shards' in the global order (the buffer holds
+        # only this shard's tokens, at their global positions)
+        disp.me_sum.append(probs.sum(0))
+        disp.ce_sum.append(top1.sum(0))
+        aux = torch.zeros((), dtype=_F32, device=x.device)
+        C = _capacity(disp.n_tokens, cfg, E)
+        off = disp.offsets[len(disp.counts)] if disp.offsets else None
+        disp.counts.append(torch.bincount(flat_e, minlength=E))
 
     # ---- capacity dispatch ------------------------------------------------
-    C = _capacity(T, cfg, E)
-    flat_e = expert_idx.reshape(-1)                            # (T*K,)
-    keep, safe_pos = _slots(flat_e, E, C)
+    keep, safe_pos = _slots(flat_e, E, C, off)
+    rec = _ROUTES.get()
+    if rec is not None:
+        rec.append({"expert": expert_idx.detach(),
+                    "keep": keep.reshape(T, K),
+                    "slot": safe_pos.reshape(T, K)})
     gate_keep = torch.where(keep.reshape(T, K), gate_vals.to(_F32), 0.0)
 
     # scatter tokens into (E, C, D) buffers

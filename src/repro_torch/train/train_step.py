@@ -26,7 +26,7 @@ import torch
 
 from ..distributed import collectives
 from ..distributed import sharding as _sh
-from ..models import forward
+from ..models import forward, moe
 from ..models.transformer import leaves, tree_map
 from . import optimizer as opt
 
@@ -145,8 +145,9 @@ def shard_train_state(params, opt_state: opt.OptState, mesh):
 def _global_loss_fn(cfg, n_valid: torch.Tensor, n_tok: torch.Tensor):
     """A batch shard's loss with the terms normalised by the global batch's
     counts (CE by its valid positions, the z-loss by its tokens), so that
-    the shards' losses, and their gradients, sum to the global ones. The
-    MoE aux is the shard's own: a MoE config runs as one batch shard."""
+    the shards' losses, and their gradients, sum to the global ones. A
+    MoE config's aux is zero here: under ``moe.global_dispatch`` the step
+    adds the global one (``moe.global_aux``)."""
     def loss_fn(params, batch):
         logits, aux = _logits(cfg, params, batch)
         dev = logits.device
@@ -167,13 +168,38 @@ def _psum_list(vals) -> torch.Tensor:
     return collectives.psum(collectives.shard_array(vals), 0).item()
 
 
-def _refuse_moe_on_batch_shards(cfg, mesh) -> None:
-    n_bd = int(np.prod([mesh.shape[a] for a in _sh.batch_axes(mesh)]))
-    if cfg.mlp == "moe" and n_bd > 1:
-        raise ValueError(
-            f"{cfg.name}: a MoE config trains on one batch shard only "
-            f"(this mesh has {n_bd}): its expert capacity and load-balance "
-            "loss are global over the batch; use a (1, M) mesh")
+def _moe_global_step(cfg, loss_fn, params, batch, devs, rows):
+    """``((total, parts), per-shard gradient trees)`` of a MoE config over
+    several batch shards: the reference's one-device function on the
+    global batch. Each shard's forward runs on its device, in row-major
+    order, under ``moe.global_dispatch`` with the offsets its predecessors
+    carried, so capacity, keep masks and slots are the global batch's; the
+    global load-balance loss is formed from every shard's router sums, and
+    one backward runs through all the shards' graphs."""
+    with torch.enable_grad():
+        totals, ces, heres, disps = [], [], [], []
+        for k, dev in enumerate(devs):
+            part = {name: v.narrow(0, k * rows, rows).to(dev)
+                    for name, v in batch.items()}
+            here = tree_map(lambda p: _sh.gather(p, dev).detach()
+                            .requires_grad_(True), params)
+            d = moe.Dispatch(batch["labels"].numel(),
+                             disps[-1].carried(dev) if disps else ())
+            with moe.global_dispatch(d):
+                total, parts = loss_fn(here, part)
+            totals.append(total)
+            ces.append(parts["ce"])
+            heres.append(here)
+            disps.append(d)
+        aux = moe.global_aux(cfg, disps, devs[0])
+        total = _psum_list(totals) + aux
+        flat = torch.autograd.grad(
+            total, [t for h in heres for t in leaves(h)], allow_unused=True,
+            materialize_grads=True)
+    it = iter(flat)
+    grads = [tree_map(lambda _: next(it), params) for _ in heres]
+    parts = {"ce": _psum_list(ces).detach(), "aux": aux.detach()}
+    return (total.detach(), parts), grads
 
 
 def make_sharded_value_and_grad(cfg, mesh):
@@ -183,8 +209,18 @@ def make_sharded_value_and_grad(cfg, mesh):
     with the ``Sharded`` parameters gathered there and its loss terms
     normalised by the global counts, the shards' losses and gradients summed
     in row-major order (``psum``); the gradients come back cut as the
-    parameters are (``Sharded``)."""
-    _refuse_moe_on_batch_shards(cfg, mesh)
+    parameters are (``Sharded``).
+
+    A MoE config on more than one batch shard computes the reference's
+    GSPMD step, the one-device function on the global batch: expert
+    capacity from the global token count, each (token, slot)'s place in
+    its expert after the earlier shards' (``moe.global_dispatch``), the
+    load-balance loss from global means. Its shards' forwards run first
+    and one backward follows, so every shard's activations live until
+    then: on separate cards each holds its own shard's, as GSPMD does; on
+    one card holding every shard they add up to the one-device step's."""
+    moe_global = cfg.mlp == "moe" and int(np.prod(
+        [mesh.shape[a] for a in _sh.batch_axes(mesh)])) > 1
 
     def vag(params, batch):
         spec = _sh.data_specs({"tokens": batch["tokens"]}, mesh)["tokens"]
@@ -197,23 +233,28 @@ def make_sharded_value_and_grad(cfg, mesh):
             mask.to(torch.float32).sum(), min=1.0).to(dev0))
         loss_fn = _global_loss_fn(cfg, n_valid, n_tok)
         rows = labels.shape[0] // len(devs)
-        totals, ces, auxs, grads = [], [], [], []
-        for k, dev in enumerate(devs):
-            part = {name: v.narrow(0, k * rows, rows).to(dev)
-                    for name, v in batch.items()}
-            here = tree_map(lambda p: _sh.gather(p, dev), params)
-            (total, parts), g = value_and_grad(loss_fn, here, part)
-            totals.append(total)
-            ces.append(parts["ce"])
-            auxs.append(parts["aux"])
-            grads.append(g)
-            del here
+        if moe_global:
+            (total, parts), grads = _moe_global_step(
+                cfg, loss_fn, params, batch, devs, rows)
+        else:
+            totals, ces, auxs, grads = [], [], [], []
+            for k, dev in enumerate(devs):
+                part = {name: v.narrow(0, k * rows, rows).to(dev)
+                        for name, v in batch.items()}
+                here = tree_map(lambda p: _sh.gather(p, dev), params)
+                (total, parts), g = value_and_grad(loss_fn, here, part)
+                totals.append(total)
+                ces.append(parts["ce"])
+                auxs.append(parts["aux"])
+                grads.append(g)
+                del here
+            total = _psum_list(totals)
+            parts = {"ce": _psum_list(ces), "aux": _psum_list(auxs)}
         full = tree_map(lambda *gs: _psum_list(gs), *grads)
         del grads
         pieces = tree_map(lambda p, g: _sh.shard(g, p.spec, p.mesh),
                           params, full)
-        parts = {"ce": _psum_list(ces), "aux": _psum_list(auxs)}
-        return (_psum_list(totals), parts), pieces
+        return (total, parts), pieces
 
     return vag
 
@@ -268,10 +309,8 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, mesh):
     contract as ``make_train_step``: new tensors, inputs left alone.
 
     A mesh of one shard gives ``make_train_step`` itself. A MoE config on
-    more than one batch shard raises ``ValueError``: the reference computes
-    the expert capacity from the global token count and the load-balance
-    loss from global means, which micro-batches on separate shards cannot
-    reproduce without a barrier at every MoE layer."""
+    any mesh gives the reference's step on the global batch (global expert
+    capacity and load-balance loss; ``make_sharded_value_and_grad``)."""
     if mesh.size == 1:
         return make_train_step(cfg, opt_cfg)
     vag = make_sharded_value_and_grad(cfg, mesh)

@@ -15,12 +15,14 @@ train tests' where they exist):
 The same bars against the reference's sharded (GSPMD) step of
 ``tests/test_dryrun_machinery.py::test_train_cell_lowers_and_is_numerically_correct``
 (reduced mistral on (2, 2, 2); the reference runs once for the file in an
-8-device subprocess). Also: MoE on a mesh with more than one batch shard
-raises ``ValueError``, MoE on (1, 8) runs and matches; a mesh of one shard
-is the one-device step; ``python -m repro_torch.launch.train --reduced
---device cpu --model-axis 2 --steps 3`` runs; a checkpoint of a sharded run
-restores into the reference's ``checkpoint.restore`` and a reference
-checkpoint into sharded leaves; the runner resumes a sharded run.
+8-device subprocess). Also: MoE on (1, 8) runs and matches (MoE on more
+than one batch shard is ``tests/test_torch_train_moe_sharded.py``'s); a
+dense config's sharded gradients are the row-major sum of its batch
+shards' own, bit for bit; a mesh of one shard is the one-device step;
+``python -m repro_torch.launch.train --reduced --device cpu --model-axis 2
+--steps 3`` runs; a checkpoint of a sharded run restores into the
+reference's ``checkpoint.restore`` and a reference checkpoint into sharded
+leaves; the runner resumes a sharded run, dense or MoE.
 """
 import os
 import pathlib
@@ -53,6 +55,7 @@ from repro_torch.train import (
     OptimizerConfig, RunnerConfig, TrainRunner, checkpoint as ckpt,
     make_loss_fn, make_train_step, optimizer as opt,
 )
+from repro_torch.train import train_step as tstep
 from repro_torch.train.train_step import (
     make_sharded_train_step, make_sharded_value_and_grad, shard_train_state,
     value_and_grad,
@@ -293,13 +296,33 @@ def test_sharded_step_matches_the_reference_sharded_step(ref):
 
 
 # ------------------------------------------------------------------ MoE
-def test_moe_on_batch_shards_raises():
-    for name in ("dbrx-132b", "deepseek-v2-lite-16b"):
-        cfg = reduced(ARCHS[name])
-        for tag in ("4x2", "2x2x2"):
-            with pytest.raises(ValueError, match="one batch shard"):
-                make_sharded_train_step(cfg, OptimizerConfig(**OCFG),
-                                        _mesh(tag))
+@pytest.mark.parametrize("name,tag", [("smollm-360m", "4x2"),
+                                      ("mistral-nemo-12b", "2x2x2")])
+def test_dense_sharded_grads_are_the_per_shard_sum(name, tag):
+    """A dense config's sharded loss and gradients: each batch shard's
+    ``value_and_grad`` on its rows with the global counts, summed in
+    row-major order, bit for bit (MoE's global dispatch leaves this path
+    alone)."""
+    cfg = reduced(ARCHS[name])
+    mesh = _mesh(tag)
+    params = init_params(cfg, device=CPU, seed=0)
+    b = _torch(_batch(cfg))
+    ps, _ = shard_train_state(params, opt.init(params), mesh)
+    (total, parts), grads = make_sharded_value_and_grad(cfg, mesh)(ps, b)
+    n = int(np.prod(MESHES[tag][0][:-1]))
+    rows = b["tokens"].shape[0] // n
+    n_tok = torch.tensor(float(b["labels"].numel()))
+    loss_fn = tstep._global_loss_fn(cfg, n_tok, n_tok)
+    per = [value_and_grad(loss_fn, params,
+                          {k: v[i * rows:(i + 1) * rows]
+                           for k, v in b.items()}) for i in range(n)]
+    want_total = tstep._psum_list([t for (t, _), _ in per])
+    assert total.numpy().tobytes() == want_total.numpy().tobytes()
+    assert float(parts["aux"]) == 0.0
+    want = _flat(tree_map(lambda *gs: tstep._psum_list(gs),
+                          *[g for _, g in per]))
+    for k, v in _flat(grads).items():
+        assert v.tobytes() == want[k].tobytes(), k
 
 
 @pytest.mark.parametrize("name", ["dbrx-132b", "deepseek-v2-lite-16b"])
@@ -406,8 +429,11 @@ def test_sharded_checkpoint_restores_in_the_reference_and_back(tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_runner_resumes_a_sharded_run(tmp_path):
-    cfg = reduced(ARCHS["smollm-360m"])
+def _runner_resumes(tmp_path, name):
+    """A 4-step sharded run on (4, 2) with checkpoints every 2 steps, then
+    a new runner resumed from its directory: the same state, bit for
+    bit."""
+    cfg = reduced(ARCHS[name])
     mesh = _mesh("4x2")
     params = init_params(cfg, device=CPU, seed=0)
     step = make_sharded_train_step(cfg, OptimizerConfig(**OCFG), mesh)
@@ -434,3 +460,12 @@ def test_runner_resumes_a_sharded_run(tmp_path):
     assert all(isinstance(x, sh.Sharded) for x in _leaves(r2.params))
     for k, v in _flat((r2.params, r2.opt_state)).items():
         np.testing.assert_array_equal(v, full[k], err_msg=k)
+
+
+def test_runner_resumes_a_sharded_run(tmp_path):
+    _runner_resumes(tmp_path, "smollm-360m")
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "deepseek-v2-lite-16b"])
+def test_runner_resumes_a_moe_sharded_run(tmp_path, name):
+    _runner_resumes(tmp_path, name)
