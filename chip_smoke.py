@@ -51,7 +51,15 @@ gradient compression of a full ``smollm-360m`` gradient on 4 shards, full
 ``deepseek-v2-lite-16b`` at its published widths (2 layers) trained on a
 (2, 2) mesh, two batch shards with the global expert capacity, against the
 one-device step (routing equal exactly), and the roofline bound on the card's measured peaks against the measured
-steps. The tile branch buckets its points on the
+steps. ``lm_remat`` holds the reference's per-layer remat on the card: the
+ten ``reduced`` configs with and without it, full ``smollm-360m`` at
+1 x 1024 both ways and 5 steps at 4 x 4096 (the reference's ``train_4k``
+rows) with it, each step's peak memory beside ``launch.dryrun``'s count of
+the same step (fake tensors, accounted on the host in two worker processes
+started before ``lm_serve``, or in this process with
+``--dry-run-in-process``), remat's cost timed at 1 x 1024 and 8 x 256, and
+the dry run's sharded prefill and decode on meshes of the card against the
+one-device path. The tile branch buckets its points on the
 card; its buckets are held bit for bit against the host's numpy bucketing at
 both full-size rows.
 
@@ -2679,12 +2687,398 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
         fail(f"lm_sharded: {', '.join(failed)} failed (see their lines)")
 
 
+# ------------------------------------------------------------ lm_remat
+REMAT_ARCH = "smollm-360m"
+REMAT_SHORT = (1, 1024)      # (b): both steps fit the card
+# (c): the reference's train_4k row length; B the largest of 4, 2, 1 whose
+# dry-run peak is under the card's capacity (the dry run's 24.9 GB at 4 x
+# 4096 with remat, written into PERF.md before the first run on the card)
+REMAT_LONG = (4, 4096)
+REMAT_STEPS = 5
+# remat's cost, timed in the phase: at (b)'s batch and at lm_train's
+REMAT_COST_TRAIN = (8, 256)
+REMAT_COST_ROUNDS = 3
+# measured max_memory_allocated over the dry run's counted peak
+REMAT_PEAK_RATIO = (0.8, 1.25)
+REMAT_GRAD_ATOL_REL = 1e-5   # the embedding's backward adds with atomics
+SERVE_PROMPTS = (4, 256)
+SERVE_DECODE_STEPS = 16
+MOE_PREFILL = (8, 32)
+
+
+# the one-device train steps the dry run accounts for ``lm_remat``: (b) at
+# 1 x 1024 with and without remat, (c) at B x 4096 with remat and the same
+# step without it (not run on the card)
+REMAT_CELLS = [("short_remat", REMAT_SHORT, True),
+               ("short_plain", REMAT_SHORT, False),
+               ("long_remat", REMAT_LONG, True),
+               ("long_plain", REMAT_LONG, False)]
+
+
+def dryrun_figure(cell) -> dict:
+    """``launch.dryrun.account`` of the one-device train step of full
+    ``smollm-360m`` on a batch of ``cell``'s shape: fake tensors on the
+    host, no card touched (in a worker process, so that the card's phases
+    do not share this one's interpreter with it, or in this process with
+    ``--dry-run-in-process``)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+
+    tag, (B, S), remat = cell
+    cfg = ARCHS[REMAT_ARCH].replace(remat=remat)
+    params = specs.param_specs_abstract(cfg)
+    state = opt.OptState(mu=params, nu=params, step=torch.empty(
+        (), dtype=torch.int32, device="meta"))
+    batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    acc = dryrun.account(make_train_step(cfg, OptimizerConfig()), params,
+                         state, batch)
+    return {"cell": tag, "batch": [B, S], "remat": remat,
+            "accounted_on": "host, fake tensors",
+            "hbm_per_chip": dryrun.HBM_PER_CHIP,
+            **{k: v for k, v in acc["memory"].items()
+               if k != "per_position"},
+            "flops": acc["cost"]["flops"], "seconds": acc["seconds"]}
+
+
+def start_dryrun_figures():
+    """The ``lm_remat`` accountings in two spawned worker processes (about
+    a minute of host time in all, most of it the two 4 x 4096 cells),
+    started before ``lm_serve`` so that they run beside the language-model
+    phases and not beside the timed STKDE ones; the phase collects them.
+    Returns the pool and the futures."""
+    import concurrent.futures as cf
+    import multiprocessing
+
+    pool = cf.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(dryrun_figure, c) for c in REMAT_CELLS]
+
+
+def remat_reduced_on_card() -> list:
+    """(a) The ten ``reduced`` configs with ``remat=True`` against
+    ``remat=False`` on the card, from the same weights and batch: the loss
+    bit for bit, every gradient within ``REMAT_GRAD_ATOL_REL x max|g|``."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train import make_loss_fn
+    from repro_torch.train.train_step import value_and_grad
+
+    rows = []
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name]).replace(remat=True)
+        params = init_params(cfg, device="cuda", seed=0)
+        b = {k: v.cuda() for k, v in train_batch(cfg, seed=0).items()}
+        out = {}
+        for remat in (True, False):
+            (total, _), g = value_and_grad(
+                make_loss_fn(cfg.replace(remat=remat)), params, b)
+            out[remat] = (total, list(leaves(g)))
+        worst = max(float((a - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-30)
+                    for a, w in zip(out[True][1], out[False][1]))
+        same = bool(torch.equal(out[True][0], out[False][0]))
+        rows.append({"arch": cfg.name, "loss": float(out[True][0]),
+                     "loss_bit_equal": same,
+                     "grad_max_abs_over_max": worst,
+                     "ok": same and worst <= REMAT_GRAD_ATOL_REL})
+    return rows
+
+
+def peak_of(fn, held: int):
+    """``fn()``'s result and the card's peak allocation while it ran, less
+    ``held`` (what was allocated before its inputs were made)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - held
+
+
+def remat_cost(cfg, ocfg, params, state, b, rounds: int) -> dict:
+    """Remat's cost in one run: the train step with remat and without on
+    ``b``, alternated ``rounds`` times after one untimed step each, timed by
+    CUDA events; the medians and their ratio."""
+    from repro_torch.train import make_train_step
+
+    steps = {r: make_train_step(cfg.replace(remat=r), ocfg)
+             for r in (True, False)}
+    times = {True: [], False: []}
+    for i in range(rounds + 1):
+        for remat in (True, False):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = steps[remat](params, state, b)
+            end.record()
+            torch.cuda.synchronize()
+            del out
+            if i:
+                times[remat].append(start.elapsed_time(end))
+    med = {r: statistics.median(t) for r, t in times.items()}
+    return {"batch": list(b["tokens"].shape), "remat_step_ms": times[True],
+            "plain_step_ms": times[False], "remat_ms": med[True],
+            "plain_ms": med[False], "remat_over_plain": med[True] / med[False]}
+
+
+def remat_full_width(figures: dict) -> dict:
+    """(b) full ``smollm-360m`` at 1 x 1024: one step with remat and one
+    without, their losses and gradients compared, each step's peak beside
+    the dry run's count; remat's cost timed there and at ``lm_train``'s
+    8 x 256 batch (``remat_cost``); (c) at B x 4096 with remat: 5 steps, ms per step,
+    tokens/s, the peak beside the count, step 1's loss against the loss
+    function under ``torch.no_grad()`` on the same batch (bit for bit), and
+    the count of the same step without remat (not run)."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train import (OptimizerConfig, make_loss_fn,
+                                   make_train_step)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import value_and_grad
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = ARCHS[REMAT_ARCH]
+    assert cfg.remat and cfg.scan_layers
+    ocfg = OptimizerConfig()
+    params = init_params(cfg, device="cuda", seed=0)
+    state = opt.init(params)
+
+    def batch(shape, seed):
+        return {k: v.cuda() for k, v in train_batch(
+            cfg, seed=seed, batch=shape[0], seq=shape[1]).items()}
+
+    def ratio(measured, tag):
+        counted = figures[tag]["peak_bytes"]
+        return {"measured_peak_bytes": measured, "dry_run_peak_bytes":
+                counted, "measured_over_dry_run": measured / counted,
+                "ok": REMAT_PEAK_RATIO[0] <= measured / counted
+                <= REMAT_PEAK_RATIO[1]}
+
+    # (b): both steps' peaks first, with nothing else held, then the
+    # gradients compared
+    b = batch(REMAT_SHORT, 0)
+    short = {}
+    for remat, tag in ((True, "short_remat"), (False, "short_plain")):
+        step = make_train_step(cfg.replace(remat=remat), ocfg)
+        out, peak = peak_of(lambda: step(params, state, b), held)
+        del out
+        short[tag] = ratio(peak, tag)
+    grads = {}
+    for remat in (True, False):
+        (total, _), g = value_and_grad(
+            make_loss_fn(cfg.replace(remat=remat)), params, b)
+        grads[remat] = (total, list(leaves(g)))
+        del g
+    worst = max(float((a - w).abs().max()) / max(float(w.abs().max()),
+                                                 1e-30)
+                for a, w in zip(grads[True][1], grads[False][1]))
+    same = bool(torch.equal(grads[True][0], grads[False][0]))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    short.update(loss_bit_equal=same, grad_max_abs_over_max=worst,
+                 ok=same and worst <= REMAT_GRAD_ATOL_REL and all(
+                     r["ok"] for r in short.values()
+                     if isinstance(r, dict)))
+    cost = [remat_cost(cfg, ocfg, params, state, bt, REMAT_COST_ROUNDS)
+            for bt in (b, batch(REMAT_COST_TRAIN, 2))]
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c)
+    long_fig = figures["long_remat"]
+    fits = long_fig["peak_bytes"] < long_fig["hbm_per_chip"]
+    bls = [batch(REMAT_LONG, 1 + i) for i in range(REMAT_STEPS)]
+    step = make_train_step(cfg, ocfg)
+    with torch.no_grad():
+        want = make_loss_fn(cfg)(params, bls[0])[0]
+    # the steps' inputs are their only references: a step's old state is
+    # freed once the next holds the new one
+    p, s = params, state
+    del params, state
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for bl in bls:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, s, m = step(p, s, bl)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(m["loss"])
+    peak_long = torch.cuda.max_memory_allocated() - held
+    first_equal = bool(torch.equal(losses[0], want))
+    losses = [float(x) for x in losses]
+    del p, s, m, bls
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = statistics.median(times[1:])
+    tokens = REMAT_LONG[0] * REMAT_LONG[1]
+    long_ = {"batch": list(REMAT_LONG), "steps": REMAT_STEPS,
+             "step_ms": times, "ms_per_step": ms,
+             "tokens_per_s": tokens / (ms / 1e3), "losses": losses,
+             "step1_loss_equals_no_grad_loss": first_equal,
+             "dry_run_peak_fits_card": fits,
+             **ratio(peak_long, "long_remat"),
+             "dry_run_without_remat": figures["long_plain"]}
+    long_["ok"] = (long_["ok"] and first_equal and fits
+                   and all(np.isfinite(losses)))
+    return {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+            "held_before_bytes": held, "short": short,
+            "remat_cost": cost, "long": long_,
+            "ok": short["ok"] and long_["ok"],
+            "seconds": time.perf_counter() - t0}
+
+
+def sharded_serving_on_card() -> dict:
+    """(d) The dry run's sharded prefill and decode (``launch.dryrun``'s
+    ``sharded_prefill`` / ``sharded_decode``) on meshes of the one card
+    against the one-device path: full ``smollm-360m`` (fp32 compute) on a
+    (2, 2) mesh, 4 prompts of 256 tokens, then 16 greedy decode steps
+    (logits within ``LM_TOL``, tokens equal); reduced
+    ``deepseek-v2-lite-16b`` and ``dbrx-132b`` prefill on (2, 2) and
+    (4, 2) under the hint mesh (dbrx's all-to-all) against the one-device
+    prefill under it, routing equal."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import ShapeCell
+    from repro_torch.models import decode_step, init_params, moe, prefill
+
+    t0 = time.perf_counter()
+    cfg = ARCHS[REMAT_ARCH].replace(compute_dtype="float32")
+    B, S = SERVE_PROMPTS
+    max_seq = S + SERVE_DECODE_STEPS
+    mesh = card_mesh((2, 2), ("data", "model"))
+    params = init_params(cfg, device="cuda", seed=0)
+    p_sh = sh.shard_tree(params, sh.param_specs(
+        params, mesh, fsdp=dryrun._serve_fsdp(cfg, mesh)), mesh)
+    toks, _ = lm_inputs(cfg, B, S, seed=3)
+    toks = toks.cuda()
+    s_specs = dryrun._decode_state_specs(cfg, B, max_seq, torch.float32,
+                                         mesh)
+    pre = dryrun.sharded_prefill(cfg, mesh, max_seq, s_specs)
+    dec = dryrun.sharded_decode(cfg, mesh, s_specs)
+    errs, tok_equal = [], True
+    with torch.no_grad():
+        got, st_sh = pre(p_sh, {"tokens": toks})
+        want, st = prefill(cfg, params, toks, max_seq)
+        ok = True
+        for i in range(SERVE_DECODE_STEPS + 1):
+            c = compare(got[:, -1], want[:, -1], LM_TOL["rtol"],
+                        LM_TOL["atol_rel_to_max"] * float(
+                            want.abs().max()))
+            errs.append(c["worst_err_over_allowed"])
+            ok = ok and c["ok"]
+            t_sh, t_one = got.argmax(-1), want.argmax(-1)
+            tok_equal = tok_equal and bool(torch.equal(t_sh, t_one))
+            if i == SERVE_DECODE_STEPS:
+                break
+            got, st_sh = dec(p_sh, st_sh, t_sh)
+            want, st = decode_step(cfg, params, t_one, st)
+    del p_sh, params, st_sh, st
+    torch.cuda.empty_cache()
+    smollm = {"arch": cfg.name, "compute_dtype": "float32",
+              "mesh": mesh.shape, "prompts": [B, S],
+              "decode_steps": SERVE_DECODE_STEPS,
+              "worst_err_over_allowed": max(errs), "tokens_equal": tok_equal,
+              "ok": ok and tok_equal}
+
+    moe_rows = []
+    for name in ("deepseek-v2-lite-16b", "dbrx-132b"):
+        mcfg = reduced(ARCHS[name])
+        mp = init_params(mcfg, device="cuda", seed=0)
+        mt = lm_inputs(mcfg, *MOE_PREFILL, seed=4)[0].cuda()
+        for shape, names in (((2, 2), ("data", "model")),
+                             ((4, 2), ("data", "model"))):
+            m = card_mesh(shape, names)
+            cell = dryrun.build_prefill(mcfg, m, ShapeCell(
+                "p", "prefill", MOE_PREFILL[1], MOE_PREFILL[0]))
+            with torch.no_grad(), moe.recording_routes() as r_sh:
+                got, _ = cell.fn(*cell.place(mp, {"tokens": mt}))
+            with torch.no_grad(), sh.hint_mesh(m), \
+                    moe.recording_routes() as r_one:
+                want, _ = prefill(mcfg, mp, mt, MOE_PREFILL[1])
+            n = len(r_one)
+            joined = {k: [torch.cat([r_sh[b * n + i][k]
+                                     for b in range(len(r_sh) // n)])
+                          for i in range(n)]
+                      for k in ("expert", "keep", "slot")}
+            routing = n > 0 and len(r_sh) % n == 0 and all(
+                torch.equal(a, w[k]) for k in joined
+                for a, w in zip(joined[k], r_one))
+            c = compare(got, want, LM_TOL["rtol"],
+                        LM_TOL["atol_rel_to_max"] * float(want.abs().max()))
+            moe_rows.append({"arch": name, "mesh": m.shape,
+                             "routing_equal": routing,
+                             "worst_err_over_allowed":
+                                 c["worst_err_over_allowed"],
+                             "ok": routing and c["ok"]})
+        del mp
+    return {"smollm": smollm, "moe_prefill": moe_rows,
+            "ok": smollm["ok"] and all(r["ok"] for r in moe_rows),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_lm_remat(dev: dict, pending=None) -> None:
+    """The reference's per-layer remat on the card, and the dry run beside
+    it: (a) the ten reduced configs with and without remat, (b) and (c)
+    full smollm-360m at 1 x 1024 and at the reference's 4,096-token rows,
+    each peak beside the dry run's count of the same step (accounted on
+    the host: in worker processes, ``pending`` being
+    ``start_dryrun_figures()``'s, or with ``pending=None`` here, after
+    (a)), remat's cost timed in this run, (d) the dry run's sharded prefill
+    and decode on meshes of the card. One JSON line each."""
+    t0 = time.perf_counter()
+    a = remat_reduced_on_card()
+    emit("lm_remat.reduced", rows=a, ok=all(r["ok"] for r in a))
+    t_wait = time.perf_counter()
+    if pending is None:
+        figures = {c[0]: dryrun_figure(c) for c in REMAT_CELLS}
+    else:
+        pool, futures = pending
+        try:
+            figures = {f["cell"]: f for f in (x.result() for x in futures)}
+        finally:
+            pool.shutdown()
+    emit("lm_remat.dry_run", figures=list(figures.values()),
+         in_process=pending is None, waited_s=time.perf_counter() - t_wait,
+         counted_by="launch.dryrun.account: fake-tensor accounting for "
+         "NVIDIA H100 80GB HBM3 on the host")
+    bc = remat_full_width(figures)
+    emit("lm_remat.full_width", nvidia_smi=dev["nvidia_smi"], **bc)
+    d = sharded_serving_on_card()
+    emit("lm_remat.sharded_serving", nvidia_smi=dev["nvidia_smi"], **d,
+         phase_seconds=time.perf_counter() - t0)
+    failed = [name for name, ok in (
+        ("reduced", all(r["ok"] for r in a)), ("full_width", bc["ok"]),
+        ("sharded_serving", d["ok"])) if not ok]
+    if failed:
+        fail(f"lm_remat: {', '.join(failed)} failed (see their lines)")
+
+
 def main() -> None:
+    """``--dry-run-in-process``: ``lm_remat``'s accountings run in this
+    process inside that phase, not in worker processes beside the
+    language-model phases (to compare those phases' times without them)."""
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     import repro_torch.kernels  # noqa: F401  (fails here without the port)
 
+    in_process = "--dry-run-in-process" in sys.argv[1:]
     dev = phase_device()
     phase_build()
     kern = phase_kernels()
@@ -2694,9 +3088,11 @@ def main() -> None:
     launches += phase_distributed(dev)
     launches += phase_planner(dev)
     launches += phase_degrade(dev)
+    pending = None if in_process else start_dryrun_figures()
     phase_lm_serve(dev)
     lm_train_ms = phase_lm_train(dev)
     phase_lm_sharded(dev, lm_train_ms)
+    phase_lm_remat(dev, pending)
     emit("total", seconds=time.perf_counter() - t_start,
          peak_host_rss_bytes=resource.getrusage(
              resource.RUSAGE_SELF).ru_maxrss * 1024)

@@ -11,13 +11,82 @@ lives there. ``psum`` and ``ppermute`` serve the STKDE strategies;
 the parameter placement of ``sharding`` and the compressed gradient sum of
 ``train.grad_compress``. All are built of ``torch`` ops that autograd
 differentiates (``.to``, indexing, ``torch.cat``, ``torch.stack``, adds).
+
+``counting()`` adds up, while it is open, the bytes each receiving device
+(or mesh position, ``mesh.position_of``) gets per collective kind: the
+counterpart of the reference's ``launch.roofline.parse_collective_bytes``,
+with its keys. A tensor that stays where it is moves nothing.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+import contextlib
+from typing import Dict, Sequence, Union
 
 import numpy as np
 import torch
+
+from . import mesh as _mesh
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+class ByteCount:
+    """Bytes received per receiver and collective kind, and the number of
+    collective calls per kind."""
+
+    def __init__(self):
+        self.received: Dict[object, Dict[str, float]] = {}
+        self.calls = {k: 0 for k in KINDS}
+
+    def result(self) -> Dict[str, float]:
+        """``parse_collective_bytes``' keys for the receiver that gets the
+        most bytes (per kind, ``total``, ``n_ops``: the calls of every
+        receiver), and ``receivers``: how many received anything."""
+        busiest = max(self.received.values(), default={},
+                      key=lambda r: sum(r.values()))
+        out = {k: float(busiest.get(k, 0.0)) for k in KINDS}
+        out["total"] = sum(out[k] for k in KINDS)
+        out["n_ops"] = sum(self.calls.values())
+        out["receivers"] = len(self.received)
+        return out
+
+
+_COUNTER = [None]
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the collectives' bytes while open: yields a ``ByteCount``."""
+    prev, _COUNTER[0] = _COUNTER[0], ByteCount()
+    try:
+        yield _COUNTER[0]
+    finally:
+        _COUNTER[0] = prev
+
+
+def _key(x):
+    pos = _mesh.position_of(x)
+    if pos is not None:
+        return pos
+    return x.device if isinstance(x, torch.Tensor) else torch.device(x)
+
+
+def _call(kind: str) -> None:
+    if _COUNTER[0] is not None:
+        _COUNTER[0].calls[kind] += 1
+
+
+def _move(t: torch.Tensor, device, kind: str) -> torch.Tensor:
+    """``t.to(device)``, its bytes counted as ``kind`` traffic into
+    ``device`` when a counter is open and ``t`` lives elsewhere."""
+    c = _COUNTER[0]
+    if c is not None:
+        dst = _key(device)
+        if _key(t) != dst:
+            got = c.received.setdefault(dst, {})
+            got[kind] = got.get(kind, 0.0) + t.numel() * t.element_size()
+    return t.to(device)
 
 
 def shard_array(values) -> np.ndarray:
@@ -42,13 +111,15 @@ def _groups(shards: np.ndarray, dims: Union[int, Sequence[int]]):
 
 
 def _reduce(shards: np.ndarray, dims, op) -> np.ndarray:
+    _call("all-reduce")
     out = None
     for shape, idx, members in _groups(shards, dims):
         if out is None:
             out = np.empty(shape, dtype=object)
         acc = members[0]
+        dev = _mesh.device_of(acc)
         for m in members[1:]:
-            acc = op(acc, m.to(acc.device))
+            acc = op(acc, _move(m, dev, "all-reduce"))
         out[idx] = acc
     return out
 
@@ -74,9 +145,10 @@ def all_gather(pieces: np.ndarray, dim: int) -> torch.Tensor:
     in row-major order of the array (``jax.lax.all_gather(..., tiled=True)``
     over the array's axes), on the first piece's device. Callers gather
     over some mesh axes and keep others by handing in a sub-array."""
+    _call("all-gather")
     flat = list(np.asarray(pieces, dtype=object).reshape(-1))
-    dev = flat[0].device
-    return torch.cat([p.to(dev) for p in flat], dim=dim)
+    dev = _mesh.device_of(flat[0])
+    return torch.cat([_move(p, dev, "all-gather") for p in flat], dim=dim)
 
 
 def all_to_all(send: np.ndarray, dim: int) -> np.ndarray:
@@ -85,16 +157,17 @@ def all_to_all(send: np.ndarray, dim: int) -> np.ndarray:
     ``j``'s tensor has a leading axis of the group's size, and shard ``m``
     receives ``stack_j(send[j][m])`` on its own device. One group per
     position of the other array axes."""
+    _call("all-to-all")
     out = np.empty(send.shape, dtype=object)
     n = send.shape[dim]
     for idx in np.ndindex(send.shape):
         m = idx[dim]
-        dev = send[idx].device
+        dev = _mesh.device_of(send[idx])
         row = []
         for j in range(n):
             src = list(idx)
             src[dim] = j
-            row.append(send[tuple(src)][m].to(dev))
+            row.append(_move(send[tuple(src)][m], dev, "all-to-all"))
         out[idx] = torch.stack(row)
     return out
 
@@ -106,13 +179,17 @@ def ppermute(bands: np.ndarray, devices: np.ndarray, dim: int,
     receives zeros, as with ``jax.lax.ppermute``. ``devices`` holds each
     receiving shard's device. Every received band is a new tensor, so later
     in-place adds on the sender do not reach it."""
+    _call("collective-permute")
     out = np.empty(bands.shape, dtype=object)
     size = bands.shape[dim]
     for idx in np.ndindex(bands.shape):
         src = list(idx)
         src[dim] -= shift
         if 0 <= src[dim] < size:
-            out[idx] = bands[tuple(src)].to(devices[idx], copy=True)
+            band = bands[tuple(src)]
+            moved = _move(band, devices[idx], "collective-permute")
+            # a new tensor even where nothing moved
+            out[idx] = moved.clone() if moved is band else moved
         else:
             out[idx] = torch.zeros_like(bands[idx], device=devices[idx])
     return out

@@ -7,10 +7,18 @@ controller process, in a fixed order, and move halo bands and partial grids
 between shards with ``.to(device)`` (``collectives``). A device may repeat:
 eight shards on ``cuda:0`` is a valid mesh, and is how one card runs every
 strategy with real halo exchanges between its shards.
+
+A mesh made with ``positions=True`` gives each position a device object of
+its own (equal in value, distinct in identity): the position identity that
+``launch.dryrun`` accounts bytes by when every position sits on one fake
+device. While its accounting runs (``tracking``), ``at`` names the position
+whose work runs now and ``device_of`` the device object of the position a
+tensor lives at. Without a tracker both cost nothing and change nothing.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +35,8 @@ class Mesh:
     axis_names: one name per axis of ``devices``.
     """
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str],
+                 positions: bool = False):
         arr = np.asarray(devices, dtype=object)
         names = tuple(axis_names)
         if arr.ndim != len(names):
@@ -38,7 +47,13 @@ class Mesh:
         self.devices = np.empty(arr.shape, dtype=object)
         for idx in np.ndindex(arr.shape):
             self.devices[idx] = resolve_device(arr[idx])
+            if positions:
+                # a distinct object per position: ``torch.device`` is
+                # immutable, so rebuilding it from its fields gives one
+                d = self.devices[idx]
+                self.devices[idx] = torch.device(d.type, d.index)
         self.axis_names = names
+        self.has_positions = positions
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -120,3 +135,98 @@ def shrink_mesh(mesh: Mesh, n_lost: int = 1) -> Optional[Mesh]:
     arr = np.empty(used, dtype=object)
     arr[:] = survivors[:used]
     return Mesh(arr.reshape(shape), names)
+
+
+# ------------------------------------------------------ position identity
+class _Tracking:
+    """What ``tracking`` installs: a ``positions=True`` mesh's device
+    objects by row-major position, the tracker's tensor -> position function
+    and function-mode factory, and the position whose work runs now."""
+
+    def __init__(self, mesh: Mesh, locate: Callable, function_mode: Callable):
+        self.devices = list(mesh.devices.flat)
+        # the mesh's objects are held in ``devices``, so their ids stay theirs
+        self.index = {id(d): k for k, d in enumerate(self.devices)}
+        self.locate = locate
+        self.function_mode = function_mode
+        self.current: Optional[int] = None
+
+    @contextlib.contextmanager
+    def running(self, pos: Optional[int]):
+        prev, self.current = self.current, pos
+        try:
+            yield
+        finally:
+            self.current = prev
+
+
+_TRACKING: Optional[_Tracking] = None
+
+
+@contextlib.contextmanager
+def tracking(mesh: Mesh, locate: Callable, function_mode: Callable):
+    """While open, ``mesh``'s positions are accounted: ``locate`` (tensor ->
+    position or ``None``) answers ``position_of`` and ``device_of`` for
+    tensors, and ``function_mode()`` makes the accounting's torch function
+    mode, which a checkpointed block's recompute re-enters (autograd runs it
+    with no function mode)."""
+    global _TRACKING
+    prev, _TRACKING = _TRACKING, _Tracking(mesh, locate, function_mode)
+    try:
+        yield
+    finally:
+        _TRACKING = prev
+
+
+def position_of(x) -> Optional[int]:
+    """The position of a device object of the tracked mesh, or of a tensor
+    as the tracker places it; ``None`` for anything else, and always when
+    no tracker is installed."""
+    tr = _TRACKING
+    if tr is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return tr.locate(x)
+    return tr.index.get(id(x))
+
+
+def device_of(t: torch.Tensor) -> torch.device:
+    """The device ``t`` lives on, as the port's meshes name it: the device
+    object of its position under a tracker, else ``t.device``."""
+    tr = _TRACKING
+    pos = tr.locate(t) if tr is not None else None
+    return tr.devices[pos] if pos is not None else t.device
+
+
+def current_position() -> Optional[int]:
+    return _TRACKING.current if _TRACKING is not None else None
+
+
+def recompute_context():
+    """A context manager that re-enters the position current now and the
+    tracker's function mode (nothing without a tracker): what a
+    checkpointed block's recompute (``remat``) runs under, since autograd
+    runs it during backward, after the caller's ``at`` has closed."""
+    tr = _TRACKING
+    if tr is None:
+        return contextlib.nullcontext()
+    return _recompute(tr, tr.current)
+
+
+@contextlib.contextmanager
+def _recompute(tr: _Tracking, pos: Optional[int]):
+    with tr.running(pos), tr.function_mode():
+        yield
+
+
+@contextlib.contextmanager
+def at(device):
+    """While open, ``device``'s position is the one whose work runs now:
+    the tracker places there what is created without a placed input. A
+    no-op for a device that is no position of the tracked mesh."""
+    pos = position_of(device)
+    if pos is None:
+        yield
+        return
+    with _TRACKING.running(pos):
+        yield

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import collectives
+from . import mesh as _mesh
 from .mesh import Mesh
 
 FSDP = "data"
@@ -322,28 +323,105 @@ class Sharded:
                 f"pieces={self.pieces.shape})")
 
 
-def shard(x: torch.Tensor, spec: P, mesh: Mesh) -> Sharded:
-    """Cut ``x`` by ``spec`` into pieces on ``mesh``'s devices. Entry ``i``
-    of the spec splits dim ``i`` over its axes' product, row-major (the
-    first named axis outermost), as XLA lays out ``NamedSharding``."""
+def _spec_devices(spec: P, mesh: Mesh) -> np.ndarray:
     axes = spec.mesh_axes()
-    devices = np.asarray(mesh.devices_of(axes), dtype=object).reshape(
+    return np.asarray(mesh.devices_of(axes), dtype=object).reshape(
         tuple(mesh.shape[a] for a in axes))
-    pieces = np.empty(devices.shape, dtype=object)
-    for idx in np.ndindex(devices.shape):
-        t, k = x, 0
-        for dim, entry in enumerate(spec):
-            names = P.axes_of(entry)
-            if not names:
-                continue
+
+
+def _cut(t: torch.Tensor, spec: P, mesh: Mesh, idx, skip: int = -1):
+    """The piece of ``t`` at pieces index ``idx``: each spec entry (but
+    entry ``skip``) narrows its dim to its axes' row-major position."""
+    k = 0
+    for dim, entry in enumerate(spec):
+        names = P.axes_of(entry)
+        if not names:
+            continue
+        if dim != skip:
             sizes = [mesh.shape[a] for a in names]
             pos = int(np.ravel_multi_index(idx[k:k + len(names)], sizes))
             n = t.shape[dim] // int(np.prod(sizes))
             t = t.narrow(dim, pos * n, n)
-            k += len(names)
-        pieces[idx] = t.detach().to(devices[idx], copy=True,
-                                    memory_format=torch.contiguous_format)
+        k += len(names)
+    return t
+
+
+def _place(t: torch.Tensor, device) -> torch.Tensor:
+    return t.detach().to(device, copy=True,
+                         memory_format=torch.contiguous_format)
+
+
+def shard(x: torch.Tensor, spec: P, mesh: Mesh) -> Sharded:
+    """Cut ``x`` by ``spec`` into pieces on ``mesh``'s devices. Entry ``i``
+    of the spec splits dim ``i`` over its axes' product, row-major (the
+    first named axis outermost), as XLA lays out ``NamedSharding``."""
+    devices = _spec_devices(spec, mesh)
+    pieces = np.empty(devices.shape, dtype=object)
+    for idx in np.ndindex(devices.shape):
+        with _mesh.at(devices[idx]):
+            pieces[idx] = _place(_cut(x, spec, mesh, idx), devices[idx])
     return Sharded(pieces, spec, mesh, x.shape, x.dtype)
+
+
+def _batch_entry(spec: P, axes) -> Optional[Tuple[int, int]]:
+    """(dim, first pieces-array axis) of the spec entry that splits over
+    exactly ``axes``, or ``None``."""
+    k = 0
+    for dim, entry in enumerate(spec):
+        names = P.axes_of(entry)
+        if names and names == tuple(axes):
+            return dim, k
+        k += len(names)
+    return None
+
+
+def batch_block(leaf: Sharded, axes, k: int, n: int,
+                device) -> torch.Tensor:
+    """The rows of batch shard ``k`` (of ``n``, over the mesh ``axes`` that
+    split the batch) of a ``Sharded`` leaf, whole in every other dim, on
+    ``device``: only that block's pieces are gathered. A leaf that is not
+    split over ``axes`` is gathered whole (it must then be one block)."""
+    hit = _batch_entry(leaf.spec, axes)
+    if hit is None:
+        if n != 1:
+            raise NotImplementedError(
+                f"a leaf of spec {leaf.spec} is not split over the batch "
+                f"axes {tuple(axes)} of {n} shards")
+        return gather(leaf, device)
+    dim, a = hit
+    sizes = [leaf.mesh.shape[x] for x in axes]
+    sub = leaf.pieces[(slice(None),) * a + tuple(
+        slice(i, i + 1) for i in np.unravel_index(k, sizes))]
+    sub = sub.reshape(sub.shape[:a] + sub.shape[a + len(axes):])
+    spec = P(*(None if d == dim else e for d, e in enumerate(leaf.spec)))
+    return gather(Sharded(sub, spec, leaf.mesh, (), leaf.dtype), device)
+
+
+def shard_blocks(blocks, spec: P, mesh: Mesh, axes) -> Sharded:
+    """The inverse of ``batch_block``: the batch shards' row blocks (in
+    row-major order over ``axes``) cut by ``spec`` into pieces on their
+    positions, each piece from its own block (no block is joined whole).
+    A spec that does not split over ``axes`` takes one block whole."""
+    hit = _batch_entry(spec, axes)
+    if hit is None:
+        if len(blocks) != 1:
+            raise NotImplementedError(
+                f"spec {spec} does not split over the batch axes "
+                f"{tuple(axes)} of {len(blocks)} shards")
+        return shard(blocks[0], spec, mesh)
+    dim, a = hit
+    sizes = [mesh.shape[x] for x in axes]
+    devices = _spec_devices(spec, mesh)
+    pieces = np.empty(devices.shape, dtype=object)
+    for idx in np.ndindex(devices.shape):
+        block = blocks[int(np.ravel_multi_index(idx[a:a + len(axes)],
+                                                sizes))]
+        with _mesh.at(devices[idx]):
+            pieces[idx] = _place(_cut(block, spec, mesh, idx, skip=dim),
+                                 devices[idx])
+    shape = list(blocks[0].shape)
+    shape[dim] *= len(blocks)
+    return Sharded(pieces, spec, mesh, shape, blocks[0].dtype)
 
 
 def gather(leaf: Sharded, device=None) -> torch.Tensor:
@@ -394,6 +472,45 @@ def gather_tree(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(gather_tree(v) for v in tree)
     return tree
+
+
+def batch_block_tree(tree, axes, k: int, n: int, device):
+    """``batch_block`` of every ``Sharded`` leaf of ``tree``; other leaves
+    as they are."""
+    if isinstance(tree, Sharded):
+        return batch_block(tree, axes, k, n, device)
+    if isinstance(tree, dict):
+        return {key: batch_block_tree(v, axes, k, n, device)
+                for key, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(batch_block_tree(getattr(tree, f), axes, k, n,
+                                             device) for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(batch_block_tree(v, axes, k, n, device)
+                          for v in tree)
+    return tree
+
+
+def shard_blocks_tree(blocks: list, specs, mesh: Mesh, axes):
+    """``shard_blocks`` leaf by leaf over the batch shards' trees (one tree
+    of one structure each) and their specs; a non-tensor leaf is the first
+    block's."""
+    def walk(trees, sp):
+        first = trees[0]
+        if isinstance(first, torch.Tensor):
+            return shard_blocks(list(trees), sp, mesh, axes)
+        if isinstance(first, dict):
+            return {k: walk([t[k] for t in trees], sp[k]) for k in first}
+        if hasattr(first, "_fields"):
+            return type(first)(*(walk([getattr(t, k) for t in trees],
+                                      getattr(sp, k))
+                                 for k in first._fields))
+        if isinstance(first, (list, tuple)):
+            return type(first)(walk([t[i] for t in trees], sp[i])
+                               for i in range(len(first)))
+        return first
+
+    return walk(blocks, specs)
 
 
 # ------------------------------------------------------------ hint context

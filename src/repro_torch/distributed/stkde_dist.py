@@ -91,7 +91,11 @@ def _used(bval: torch.Tensor) -> np.ndarray:
     """Per bucket, the length of the prefix of its slots that holds every
     valid point, on the host (one read of the card). The rest of a bucket
     is parked padding: its cylinders fall wholly outside the grid and add
-    nothing, so a shard's scatter walks the prefix only."""
+    nothing, so a shard's scatter walks the prefix only. Buckets on the
+    ``meta`` device have no values (a dry run): every slot is walked, as
+    the reference's compiled program walks them."""
+    if bval.device.type == "meta":
+        return np.full(bval.shape[:-1], bval.shape[-1], dtype=np.int64)
     slot = torch.arange(1, bval.shape[-1] + 1, dtype=torch.float32,
                         device=bval.device)
     return torch.where(bval > 0, slot, 0.0).amax(dim=-1).to(

@@ -12,14 +12,17 @@ __all__ = ["make_production_mesh", "make_host_mesh", "shrink_mesh"]
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device: DeviceLike = None) -> Mesh:
+                         device: DeviceLike = None,
+                         positions: bool = False) -> Mesh:
     """The reference's 16 x 16 ``("data", "model")`` mesh (256 shards), or
     2 x 16 x 16 ``("pod", "data", "model")`` with ``multi_pod`` (512), every
     position on ``device`` (``None`` means ``"cuda"``). Its shapes are what
-    the placement rules of ``distributed.sharding`` are checked on."""
+    the placement rules of ``distributed.sharding`` are checked on.
+    ``positions=True`` gives every position its own identity
+    (``distributed.mesh``), as the dry run accounts it."""
     dev = resolve_device(device)
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     devices = np.empty(shape, dtype=object)
     devices.fill(dev)
-    return Mesh(devices, axes)
+    return Mesh(devices, axes, positions=positions)

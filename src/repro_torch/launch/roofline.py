@@ -12,8 +12,10 @@ Three terms per step, in seconds:
 
 ``Roofline`` has no default hardware: the caller gives the peak compute
 rate, the memory bandwidth and the link bandwidth (``chip_smoke.py``
-measures them on the card it runs on). The reference's parsing of
-collective bytes out of post-SPMD HLO text has no counterpart here.
+measures them on the card it runs on; ``launch.dryrun`` uses the H100's
+published rates). In place of the reference's parsing of collective bytes
+out of post-SPMD HLO text, the port's collectives count the bytes they move
+(``distributed.collectives.counting``).
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """Shape-only stand-ins for every (arch x shape) cell: the reference's
 ``launch/specs.py``, with tensors on ``torch.device("meta")`` in place of
 ``jax.ShapeDtypeStruct`` (a shape and a dtype, no storage).
+``launch.dryrun.account`` makes these trees anew as fake tensors under its
+``FakeTensorMode``.
 
 Shape cells (LM transformers): train_4k / prefill_32k / decode_32k /
 long_500k — see ``SHAPES``. ``decode_*`` / ``long_*`` stand for one decode

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 import numpy as np
 
 from ..distributed import collectives
+from ..distributed import mesh as _mesh
 from ..distributed import sharding as _sh
 from . import layers
 
@@ -93,17 +94,34 @@ class Dispatch:
     capacity. ``offsets[l]`` is, for the ``l``-th ``moe_apply`` call of the
     forward, the ``(E,)`` int64 count of (token, slot)s that the earlier
     batch shards (the global tokens before this shard's) sent to each
-    expert; empty for the first shard. The forward fills, per call,
-    ``counts`` (this shard's own ``(E,)`` counts), ``me_sum`` (its router
-    probabilities summed over its tokens, in the autograd graph) and
-    ``ce_sum`` (its top-1 choices counted, fp32)."""
+    expert; empty for the first shard. ``shard`` is the shard's row-major
+    index over the mesh's batch axes (``moe_apply_a2a`` exchanges among
+    that batch shard's ranks). The forward fills, per call, ``counts``
+    (this shard's own ``(E,)`` counts; ``moe_apply`` only), ``me_sum``
+    (its router probabilities summed over its tokens, in the autograd
+    graph) and ``ce_sum`` (its top-1 choices counted, fp32)."""
 
-    def __init__(self, n_tokens: int, offsets: Sequence[torch.Tensor] = ()):
+    def __init__(self, n_tokens: int, offsets: Sequence[torch.Tensor] = (),
+                 shard: int = 0):
         self.n_tokens = int(n_tokens)
         self.offsets = list(offsets)
+        self.shard = shard
         self.counts: List[torch.Tensor] = []
         self.me_sum: List[torch.Tensor] = []
         self.ce_sum: List[torch.Tensor] = []
+
+    @property
+    def calls(self) -> int:
+        """The MoE calls this shard's forward has made so far."""
+        return len(self.me_sum)
+
+    def replay(self, start: int) -> "Dispatch":
+        """A fresh ``Dispatch`` that runs the calls from ``start`` on again
+        as the forward ran them (the same capacity, offsets and shard),
+        filling its own lists: what a recomputed block (``remat``) runs
+        under, so that it neither appends to this one nor shifts its
+        offsets."""
+        return Dispatch(self.n_tokens, self.offsets[start:], self.shard)
 
     def carried(self, device) -> List[torch.Tensor]:
         """The next batch shard's ``offsets``, on ``device``: this shard's
@@ -148,6 +166,29 @@ def recording_routes():
         _ROUTES.reset(tok)
 
 
+def recompute_context():
+    """At a checkpointed block's forward: a context manager for its
+    recompute, which autograd runs during backward, outside the caller's
+    ``global_dispatch`` and ``recording_routes`` (and maybe on another
+    thread). It re-enters a ``replay`` of the dispatch active now (from
+    the next call on) and records no routes, so the recompute takes the
+    forward's capacity, offsets and path and appends nothing."""
+    disp = _DISPATCH.get()
+    start = disp.calls if disp is not None else 0
+
+    @contextlib.contextmanager
+    def again():
+        toks = (_DISPATCH.set(disp.replay(start) if disp is not None
+                              else None), _ROUTES.set(None))
+        try:
+            yield
+        finally:
+            _ROUTES.reset(toks[1])
+            _DISPATCH.reset(toks[0])
+
+    return again()
+
+
 def global_aux(cfg, shards: Sequence[Dispatch], device) -> torch.Tensor:
     """The global batch's load-balance loss from its shards' ``Dispatch``es
     (in row-major order): per ``moe_apply`` call ``coef E sum(me ce)`` with
@@ -188,12 +229,16 @@ def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
         # the global call's capacity and slots: this shard's tokens come
         # after the earlier shards' in the global order (the buffer holds
         # only this shard's tokens, at their global positions)
+        off = disp.offsets[disp.calls] if disp.offsets else None
         disp.me_sum.append(probs.sum(0))
         disp.ce_sum.append(top1.sum(0))
         aux = torch.zeros((), dtype=_F32, device=x.device)
         C = _capacity(disp.n_tokens, cfg, E)
-        off = disp.offsets[len(disp.counts)] if disp.offsets else None
-        disp.counts.append(torch.bincount(flat_e, minlength=E))
+        # bincount's counts, in a shape that does not depend on the values
+        # (a dry run's fake tensors have none)
+        disp.counts.append(torch.zeros(E, dtype=torch.int64,
+                                       device=x.device).index_add_(
+            0, flat_e, torch.ones_like(flat_e)))
 
     # ---- capacity dispatch ------------------------------------------------
     keep, safe_pos = _slots(flat_e, E, C, off)
@@ -241,6 +286,14 @@ def a2a_applies(cfg, x_shape, mesh) -> bool:
     return not (M == 1 or cfg.n_experts % M or (B * S // max(n_bd, 1)) % M)
 
 
+def _at_each(devs: np.ndarray):
+    """Each rank ``(b, m)`` of ``devs``, its position the current one
+    (``mesh.at``) while the caller's loop body runs for it."""
+    for b, m in np.ndindex(devs.shape):
+        with _mesh.at(devs[b, m]):
+            yield b, m
+
+
 def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE with an explicit all-to-all exchange between the
     shards of ``mesh``, the reference's ``shard_map`` path.
@@ -257,16 +310,33 @@ def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     shard, over ``T``). Shards run one after another in row-major order on
     their devices; the weights are whole tensors, each rank reading its
     experts' slice. Falls back to ``moe_apply`` when the reference does
-    (``a2a_applies``)."""
-    if not a2a_applies(cfg, x.shape, mesh):
+    (``a2a_applies``). ``recording_routes`` gets one entry per call: the
+    ranks' expert ids, keep masks and slots (within the destination
+    rank's buffer) in token order.
+
+    Under ``global_dispatch``, ``x`` is batch shard ``d.shard``'s rows of
+    the global batch: only that batch shard's ranks exchange (each rank's
+    tokens, capacity and experts are the global call's), its router sums
+    go to the ``Dispatch`` and the returned aux is zero (``global_aux``
+    forms it)."""
+    disp: Optional[Dispatch] = _DISPATCH.get()
+    bd = _sh.batch_axes(mesh)
+    n_bd = int(np.prod([mesh.shape[a] for a in bd])) if bd else 1
+    # under a dispatch the global batch is n_bd blocks like x
+    g_shape = (tuple(x.shape) if disp is None
+               else (x.shape[0] * n_bd,) + tuple(x.shape[1:]))
+    if not a2a_applies(cfg, g_shape, mesh):
         return moe_apply(cfg, p, x)
+    M = mesh.shape[_sh.TP]
+    devs = np.asarray(mesh.devices_of(bd + (_sh.TP,)),
+                      dtype=object).reshape(n_bd, M)
+    if disp is not None:
+        devs = devs[disp.shard:disp.shard + 1]
+        n_bd = 1
     dt = x.dtype
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    bd = _sh.batch_axes(mesh)
-    M = mesh.shape[_sh.TP]
-    n_bd = int(np.prod([mesh.shape[a] for a in bd])) if bd else 1
     if T % n_bd:
         raise ValueError(f"{T} tokens do not split over the batch axes "
                          f"{bd} of size {n_bd}")
@@ -274,8 +344,6 @@ def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     T_loc = T // n_bd
     T2 = T_loc // M
     C2 = _capacity(T2, cfg, M)
-    devs = np.asarray(mesh.devices_of(bd + (_sh.TP,)),
-                      dtype=object).reshape(n_bd, M)
     xt = x.reshape(T, D)
 
     shape = (n_bd, M)
@@ -284,7 +352,8 @@ def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     send_e = np.empty(shape, dtype=object)
     me_sum = np.empty(shape, dtype=object)
     ce_sum = np.empty(shape, dtype=object)
-    for b, m in np.ndindex(shape):
+    picked = []
+    for b, m in _at_each(devs):
         dev = devs[b, m]
         lo = b * T_loc + m * T2
         x_my = xt[lo:lo + T2].to(dev)
@@ -296,6 +365,7 @@ def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
         dest = flat_e // E_loc                                 # rank
         e_loc = flat_e % E_loc                                 # local expert
         keep, safe_pos = _slots(dest, M, C2)
+        picked.append((eidx, keep, safe_pos))
         gate_keep = torch.where(keep.reshape(T2, K), gate_vals.to(_F32),
                                 0.0)
         src = torch.repeat_interleave(x_my, K, dim=0)
@@ -309,17 +379,28 @@ def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
                                    device=dev).scatter_reduce(
             0, flat_slot, torch.where(keep, e_loc, 0), "amax").reshape(M, C2)
         route[b, m] = (dest, safe_pos, gate_keep)
+    rec = _ROUTES.get()
+    if rec is not None:
+        first = devs[0, 0]
+        rec.append({key: torch.cat([r[i].to(first).reshape(T2, K)
+                                    for r in picked])
+                    for i, key in enumerate(("expert", "keep", "slot"))})
 
-    # load-balance aux from the global means
-    t = torch.tensor(float(T), dtype=_F32, device=devs[0, 0])
-    me = collectives.psum(me_sum, (0, 1)).item() / t
-    ce = collectives.psum(ce_sum, (0, 1)).item() / t
-    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    if disp is None:
+        # load-balance aux from the global means
+        t = torch.tensor(float(T), dtype=_F32, device=devs[0, 0])
+        me = collectives.psum(me_sum, (0, 1)).item() / t
+        ce = collectives.psum(ce_sum, (0, 1)).item() / t
+        aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    else:
+        disp.me_sum.append(collectives.psum(me_sum, (0, 1)).item())
+        disp.ce_sum.append(collectives.psum(ce_sum, (0, 1)).item())
+        aux = torch.zeros((), dtype=_F32, device=x.device)
 
     recv = collectives.all_to_all(send, 1)
     recv_e = collectives.all_to_all(send_e, 1)
     out = np.empty(shape, dtype=object)
-    for b, m in np.ndindex(shape):
+    for b, m in _at_each(devs):
         dev = devs[b, m]
         tok = recv[b, m].reshape(M * C2, D)
         sel = recv_e[b, m].reshape(-1)
@@ -338,7 +419,7 @@ def moe_apply_a2a(cfg, p, x, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
 
     back = collectives.all_to_all(out, 1)
     y_my = np.empty(shape, dtype=object)
-    for b, m in np.ndindex(shape):
+    for b, m in _at_each(devs):
         dest, safe_pos, gate_keep = route[b, m]
         y_tok = back[b, m][dest, safe_pos].reshape(T2, K, D)
         y_my[b, m] = torch.einsum("tkd,tk->td", y_tok.to(_F32),

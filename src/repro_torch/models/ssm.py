@@ -136,7 +136,10 @@ def ssm_apply(cfg, p, x, return_cache: bool = False):
                                h.to(dt_))
         # state update: h' = exp(last) h + sum_i exp(last - cum_i) dt_i B_i x_i
         coef = torch.exp(last[:, None] - cumq) * dtq             # (B,Q,H)
-        dh = torch.einsum("bihn,bihp->bhpn", bq * coef[..., None], xq)
+        # B_i dt_i is fp32 (coef is); x follows it, as the reference's
+        # einsum promotes a bf16 operand
+        bcoef = bq * coef[..., None]
+        dh = torch.einsum("bihn,bihp->bhpn", bcoef, xq.to(bcoef.dtype))
         h = torch.exp(last)[:, :, None, None] * h + dh.to(_F32)
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(B_, S, H, P)

@@ -3,8 +3,14 @@
 Parameters keep the reference's tree: per-layer weights are stacked on a
 leading L axis (``params["blocks"][name]`` is ``(L, ...)``), and the
 reference's ``lax.scan`` over that axis is a Python loop here, each layer's
-weights a view ``a[i]``. ``remat`` / ``scan_layers`` steer the reference's
-compilation and change nothing in this package.
+weights a view ``a[i]``. With ``remat`` and ``scan_layers`` set (every full
+config), a forward under autograd runs each block of that loop (and of the
+Whisper encoder's) through a non-reentrant ``torch.utils.checkpoint``, as
+the reference wraps its scan body in ``jax.checkpoint``: backward keeps the
+blocks' inputs and recomputes one block at a time, and the numbers do not
+move. A config with ``scan_layers=False`` is not checkpointed (the
+reference's unrolled loop is not), and nothing changes without autograd
+(prefill, decode, serving).
 
 Families:
   dense / moe        [attn | mla] + [swiglu | gelu | moe]
@@ -17,11 +23,14 @@ Families:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 from .. import _device
+from ..distributed import mesh as _mesh
 from ..distributed import sharding as _sh
 from . import attention, layers, mla, moe, rwkv, ssm
 
@@ -181,19 +190,63 @@ def _block_apply(cfg, params, bp, x, positions, layer_idx, enc_out=None):
     return x + h, aux
 
 
+def _remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: nothing around the
+    forward; around the recompute, what the forward ran under and autograd
+    does not carry into backward: the MoE dispatch (replayed, no routes
+    recorded), the hint mesh and the mesh position."""
+    again = [moe.recompute_context(), _mesh.recompute_context()]
+    hint = _sh.active_mesh()
+    if hint is not None:
+        again.append(_sh.hint_mesh(hint))
+
+    @contextlib.contextmanager
+    def recompute():
+        with contextlib.ExitStack() as stack:
+            for ctx in again:
+                stack.enter_context(ctx)
+            yield
+
+    return contextlib.nullcontext(), recompute()
+
+
+def _rematted(cfg) -> bool:
+    """Does a forward now run its blocks through ``checkpoint``?"""
+    return cfg.remat and cfg.scan_layers and torch.is_grad_enabled()
+
+
+def _run_block(remat: bool, fn, *args):
+    if not remat:
+        return fn(*args)
+    return _checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                  context_fn=_remat_contexts)
+
+
 def _scan_blocks(cfg, params, blocks, x, positions, enc_out=None):
-    """The loop over the stacked blocks. Returns (x, aux)."""
+    """The loop over the stacked blocks, each one checkpointed under
+    ``remat`` (``_rematted``). Returns (x, aux)."""
     L = next(leaves(blocks)).shape[0]
+    remat = _rematted(cfg)
     aux = torch.zeros((), dtype=_F32, device=x.device)
     for i in range(L):
-        x, a = _block_apply(cfg, params, layer(blocks, i), x, positions, i,
-                            enc_out=enc_out)
+        x, a = _run_block(remat, _block_apply, cfg, params, layer(blocks, i),
+                          x, positions, i, enc_out)
         aux = aux + a
     return x, aux
 
 
+def _enc_block(cfg, enc_cfg, params, bp, x, positions, i):
+    x = x + attention.attn_apply(
+        enc_cfg, bp["attn"], layers.apply_norm(cfg, x, bp["norm1"]),
+        positions, causal=False, use_rope=False)
+    h, _ = apply_channel(enc_cfg, params, bp,
+                         layers.apply_norm(cfg, x, bp["norm2"]), i)
+    return x + h
+
+
 def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
-    """Whisper encoder over stub frame embeddings (B, S_enc, D)."""
+    """Whisper encoder over stub frame embeddings (B, S_enc, D); each
+    block checkpointed under ``remat``, as the decoder's are."""
     dt = layers.dtype_of(cfg.compute_dtype)
     S = frames.shape[1]
     x = frames.to(dt) + layers.sinusoidal_positions(
@@ -201,14 +254,10 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(S, device=frames.device)
     enc_cfg = cfg.replace(mixer="attn", mla=False, mlp="gelu")
     blocks = params["enc_blocks"]
+    remat = _rematted(cfg)
     for i in range(next(leaves(blocks)).shape[0]):
-        bp = layer(blocks, i)
-        x = x + attention.attn_apply(
-            enc_cfg, bp["attn"], layers.apply_norm(cfg, x, bp["norm1"]),
-            positions, causal=False, use_rope=False)
-        h, _ = apply_channel(enc_cfg, params, bp,
-                             layers.apply_norm(cfg, x, bp["norm2"]), i)
-        x = x + h
+        x = _run_block(remat, _enc_block, cfg, enc_cfg, params,
+                       layer(blocks, i), x, positions, i)
     return layers.apply_norm(cfg, x, params["enc_norm"])
 
 

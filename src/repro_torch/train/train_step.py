@@ -14,10 +14,12 @@ device (``tokens``, ``labels``, optional ``mask``; ``vision_embeds`` /
 moments placed by ``sharding.param_specs(fsdp=True)``
 (``shard_train_state``), the batch split over the mesh's batch axes.
 
-The reference's ``remat`` (``jax.checkpoint`` per layer) saves memory
-without changing a number; the port stores every layer's activations.
-Matmuls in fp32 stay fp32: TF32 is left off (PyTorch's default), so the
-card's loss stays comparable with the CPU's.
+The reference's ``remat`` (``jax.checkpoint`` per layer) is the port's
+too: with ``cfg.remat`` (every full config) the forward checkpoints each
+block (``models.transformer``), so backward holds the blocks' inputs and
+one block's recompute, and not a number moves. Matmuls in fp32 stay fp32:
+TF32 is left off (PyTorch's default), so the card's loss stays comparable
+with the CPU's.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..distributed import collectives
+from ..distributed import mesh as _mesh
 from ..distributed import sharding as _sh
 from ..models import forward, moe
 from ..models.transformer import leaves, tree_map
@@ -127,15 +130,16 @@ def make_eval_step(cfg):
 
 
 # ------------------------------------------------------------- on a mesh
-def shard_train_state(params, opt_state: opt.OptState, mesh):
+def shard_train_state(params, opt_state: opt.OptState, mesh, specs=None):
     """``(params, opt_state)`` placed for ``make_sharded_train_step``: the
-    parameters and both moments cut into pieces by
-    ``sharding.param_specs(params, mesh, fsdp=True)`` (``Sharded`` leaves),
+    parameters and both moments cut into pieces by ``specs`` (default
+    ``sharding.param_specs(params, mesh, fsdp=True)``; ``Sharded`` leaves),
     the step count on the mesh's first device. A mesh of one shard gives
     them back as they are."""
     if mesh.size == 1:
         return params, opt_state
-    specs = _sh.param_specs(params, mesh, fsdp=True)
+    if specs is None:
+        specs = _sh.param_specs(params, mesh, fsdp=True)
     return (_sh.shard_tree(params, specs, mesh),
             opt.OptState(mu=_sh.shard_tree(opt_state.mu, specs, mesh),
                          nu=_sh.shard_tree(opt_state.nu, specs, mesh),
@@ -150,7 +154,7 @@ def _global_loss_fn(cfg, n_valid: torch.Tensor, n_tok: torch.Tensor):
     adds the global one (``moe.global_aux``)."""
     def loss_fn(params, batch):
         logits, aux = _logits(cfg, params, batch)
-        dev = logits.device
+        dev = _mesh.device_of(logits)
         nll = _nll(logits, batch["labels"])
         mask = batch.get("mask")
         ce_sum = (nll.sum() if mask is None
@@ -175,18 +179,22 @@ def _moe_global_step(cfg, loss_fn, params, batch, devs, rows):
     order, under ``moe.global_dispatch`` with the offsets its predecessors
     carried, so capacity, keep masks and slots are the global batch's; the
     global load-balance loss is formed from every shard's router sums, and
-    one backward runs through all the shards' graphs."""
+    one backward runs through all the shards' graphs. With ``remat`` those
+    graphs hold each shard's block inputs, and the recompute of a block
+    re-enters its shard's dispatch (``moe.recompute_context``)."""
     with torch.enable_grad():
         totals, ces, heres, disps = [], [], [], []
         for k, dev in enumerate(devs):
-            part = {name: v.narrow(0, k * rows, rows).to(dev)
-                    for name, v in batch.items()}
-            here = tree_map(lambda p: _sh.gather(p, dev).detach()
-                            .requires_grad_(True), params)
-            d = moe.Dispatch(batch["labels"].numel(),
-                             disps[-1].carried(dev) if disps else ())
-            with moe.global_dispatch(d):
-                total, parts = loss_fn(here, part)
+            with _mesh.at(dev):
+                part = {name: v.narrow(0, k * rows, rows).to(dev)
+                        for name, v in batch.items()}
+                here = tree_map(lambda p: _sh.gather(p, dev).detach()
+                                .requires_grad_(True), params)
+                d = moe.Dispatch(batch["labels"].numel(),
+                                 disps[-1].carried(dev) if disps else (),
+                                 shard=k)
+                with moe.global_dispatch(d):
+                    total, parts = loss_fn(here, part)
             totals.append(total)
             ces.append(parts["ce"])
             heres.append(here)
@@ -202,14 +210,16 @@ def _moe_global_step(cfg, loss_fn, params, batch, devs, rows):
     return (total.detach(), parts), grads
 
 
-def make_sharded_value_and_grad(cfg, mesh):
+def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
     """``(params, batch) -> ((total, parts), grads)`` on a mesh: the global
     batch (a dict of whole tensors) split over ``sharding.batch_axes`` by
     ``data_specs``, each batch shard's forward and backward on its device
     with the ``Sharded`` parameters gathered there and its loss terms
     normalised by the global counts, the shards' losses and gradients summed
     in row-major order (``psum``); the gradients come back cut as the
-    parameters are (``Sharded``).
+    parameters are (``Sharded``). ``batch_over_model`` splits the batch
+    over the model axis too (``data_specs(include_model=True)``: the
+    reference's layout for an ``fsdp`` config).
 
     A MoE config on more than one batch shard computes the reference's
     GSPMD step, the one-device function on the global batch: expert
@@ -219,11 +229,9 @@ def make_sharded_value_and_grad(cfg, mesh):
     and one backward follows, so every shard's activations live until
     then: on separate cards each holds its own shard's, as GSPMD does; on
     one card holding every shard they add up to the one-device step's."""
-    moe_global = cfg.mlp == "moe" and int(np.prod(
-        [mesh.shape[a] for a in _sh.batch_axes(mesh)])) > 1
-
     def vag(params, batch):
-        spec = _sh.data_specs({"tokens": batch["tokens"]}, mesh)["tokens"]
+        spec = _sh.data_specs({"tokens": batch["tokens"]}, mesh,
+                              include_model=batch_over_model)["tokens"]
         axes = _sh.P.axes_of(spec[0])
         devs = np.asarray(mesh.devices_of(axes), dtype=object).reshape(-1)
         dev0 = devs[0]
@@ -233,16 +241,17 @@ def make_sharded_value_and_grad(cfg, mesh):
             mask.to(torch.float32).sum(), min=1.0).to(dev0))
         loss_fn = _global_loss_fn(cfg, n_valid, n_tok)
         rows = labels.shape[0] // len(devs)
-        if moe_global:
+        if cfg.mlp == "moe" and len(devs) > 1:
             (total, parts), grads = _moe_global_step(
                 cfg, loss_fn, params, batch, devs, rows)
         else:
             totals, ces, auxs, grads = [], [], [], []
             for k, dev in enumerate(devs):
-                part = {name: v.narrow(0, k * rows, rows).to(dev)
-                        for name, v in batch.items()}
-                here = tree_map(lambda p: _sh.gather(p, dev), params)
-                (total, parts), g = value_and_grad(loss_fn, here, part)
+                with _mesh.at(dev):
+                    part = {name: v.narrow(0, k * rows, rows).to(dev)
+                            for name, v in batch.items()}
+                    here = tree_map(lambda p: _sh.gather(p, dev), params)
+                    (total, parts), g = value_and_grad(loss_fn, here, part)
                 totals.append(total)
                 ces.append(parts["ce"])
                 auxs.append(parts["aux"])
@@ -269,18 +278,22 @@ def sharded_update(opt_cfg: opt.OptimizerConfig, params, grads,
     first = next(leaves(params)).mesh.first_device
     sq = [torch.sum(torch.square(pc.to(torch.float32)))
           for g in opt.sorted_leaves(grads) for pc in g.pieces.flat]
-    gnorm = torch.sqrt(_psum_list(sq).to(first))
-    sc0 = opt.step_scalars(opt_cfg, gnorm, state.step)
+    with _mesh.at(first):
+        gnorm = torch.sqrt(_psum_list(sq).to(first))
+        sc0 = opt.step_scalars(opt_cfg, gnorm, state.step)
     per_dev = {}
 
     def leaf(p, g, m, v):
         outs = [np.empty(p.pieces.shape, dtype=object) for _ in range(3)]
         for idx in np.ndindex(p.pieces.shape):
-            dev = p.pieces[idx].device
-            sc = per_dev.setdefault(dev, sc0.to(dev))
-            new = opt.adamw_leaf(opt_cfg, sc, p.pieces[idx], g.pieces[idx],
-                                 m.pieces[idx], v.pieces[idx],
-                                 decay=p.ndim >= 2)
+            dev = _mesh.device_of(p.pieces[idx])
+            key = (dev, _mesh.position_of(dev))
+            if key not in per_dev:
+                per_dev[key] = sc0.to(dev)
+            with _mesh.at(dev):
+                new = opt.adamw_leaf(opt_cfg, per_dev[key], p.pieces[idx],
+                                     g.pieces[idx], m.pieces[idx],
+                                     v.pieces[idx], decay=p.ndim >= 2)
             for o, t in zip(outs, new):
                 o[idx] = t
         return tuple(_sh.Sharded(o, p.spec, p.mesh, p.shape, dt)
@@ -295,7 +308,8 @@ def sharded_update(opt_cfg: opt.OptimizerConfig, params, grads,
             {"grad_norm": gnorm, "lr": sc0.lr})
 
 
-def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, mesh):
+def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, mesh,
+                            batch_over_model: bool = False):
     """The train step on a ``Mesh`` of shards, from one controller: the
     reference's GSPMD step (``jax.jit`` with ``param_specs(fsdp=True)`` and
     ``data_specs`` shardings) as explicit placement.
@@ -310,10 +324,11 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, mesh):
 
     A mesh of one shard gives ``make_train_step`` itself. A MoE config on
     any mesh gives the reference's step on the global batch (global expert
-    capacity and load-balance loss; ``make_sharded_value_and_grad``)."""
+    capacity and load-balance loss; ``make_sharded_value_and_grad``, as
+    is ``batch_over_model``)."""
     if mesh.size == 1:
         return make_train_step(cfg, opt_cfg)
-    vag = make_sharded_value_and_grad(cfg, mesh)
+    vag = make_sharded_value_and_grad(cfg, mesh, batch_over_model)
 
     def train_step(params, opt_state, batch):
         (total, parts), grads = vag(params, batch)

@@ -335,9 +335,17 @@ def test_loss_decreases():
                                                 total_steps=100))
     state = opt.init(params)
     losses = []
-    for s in range(100):
-        params, state, m = step(params, state, _torch(data.batch_at(s)))
-        losses.append(float(m["loss"]))
+    # one intra-op thread: on a host whose cores are busy (pytest-xdist's
+    # other workers), a thread per core waits on the busy ones at every op,
+    # and these 100 steps took minutes instead of seconds
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for s in range(100):
+            params, state, m = step(params, state, _torch(data.batch_at(s)))
+            losses.append(float(m["loss"]))
+    finally:
+        torch.set_num_threads(threads)
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     assert last < first - 1.0, (first, last)
 
