@@ -37,8 +37,8 @@ second) and through the slot-swap continuous engine (the same prompts,
 ``max_new`` alternating 8 and 32: its tokens against the bucketed path's,
 its swaps and slot occupancy), and the ``reduced`` MLA and rwkv6 configs
 continuous against bucketed. ``lm_train`` takes one train step of each
-``reduced`` config on the card against the CPU, trains the full
-``smollm-360m`` for 20 steps through ``repro_torch.launch.train.main``
+``reduced`` config on the card against the CPU, trains ``smollm-360m`` at
+its widths (8 of its 32 blocks) for 20 steps through ``repro_torch.launch.train.main``
 (async checkpoints every 10), then kills the run after step 10 and resumes
 it: the step-10 checkpoint restored bit for bit, the resumed step-20 loss
 against the uninterrupted one's. ``lm_sharded`` runs what exists only across
@@ -47,7 +47,10 @@ the ten configs at full size on the production meshes, the MoE all-to-all
 at ``deepseek-v2-lite-16b``'s published widths against ``moe_apply``
 (output, aux, gradients) and reduced ``dbrx-132b`` under a hint mesh, int8
 gradient compression of a full ``smollm-360m`` gradient on 4 shards, full
-``smollm-360m`` trained on a (2, 2) mesh against the one-device step,
+``smollm-360m`` trained on a (2, 2) mesh against the one-device step
+(tensor-parallel over "model", its 15 heads split through a head),
+``mistral-nemo-12b`` at its published widths (2 layers) trained the same
+way (whole heads split),
 ``deepseek-v2-lite-16b`` at its published widths (2 layers) trained on a
 (2, 2) mesh, two batch shards with the global expert capacity, against the
 one-device step (routing equal exactly), and the roofline bound on the card's measured peaks against the measured
@@ -1860,6 +1863,9 @@ TRAIN_PARAM_ATOL_LR = 0.5
 RESUME_LOSS_RTOL = 1e-3
 TRAIN_ARGS = ["--arch", "smollm-360m", "--steps", "20", "--batch", "8",
               "--seq", "256", "--ckpt-every", "10"]
+# (b)'s depth: smollm-360m's 32 blocks cut to 8 (its widths kept; 125.8 M
+# parameters, a 1.51 GB checkpoint) for the script's time cap
+TRAIN_LAYERS = 8
 
 
 def train_batch(cfg, seed: int, batch: int = 2, seq: int = 16) -> dict:
@@ -1957,8 +1963,8 @@ def restored_bits_equal(tree, ckpt_dir: str, step: int) -> dict:
 def phase_lm_train(dev: dict) -> float:
     """Training on the card (no kernel of its own: plain ops and
     ``torch.autograd``). (a) One step of each ``reduced`` config, card
-    against CPU. (b) ``smollm-360m`` at full width and depth, fp32, through
-    ``repro_torch.launch.train.main``: 20 steps of 8 x 256 tokens of
+    against CPU. (b) ``smollm-360m`` at full width, its depth cut to
+    ``TRAIN_LAYERS``, through ``repro_torch.launch.train.main``: 20 steps of 8 x 256 tokens of
     ``SyntheticLM``, async checkpoints every 10 steps into a temporary
     directory (removed after). (c) The step-20 checkpoint removed, as if
     the run had died after step 10: a fresh ``TrainRunner`` from
@@ -1971,10 +1977,12 @@ def phase_lm_train(dev: dict) -> float:
     import shutil
     import tempfile
 
+    from repro_torch.configs import ARCHS
     from repro_torch.launch import train as launch_train
     from repro_torch.obs import trace
 
     t0 = time.perf_counter()
+    cfg = ARCHS["smollm-360m"].replace(n_layers=TRAIN_LAYERS)
     reduced_rows = reduced_train_on_card()
     t_reduced = time.perf_counter() - t0
 
@@ -1986,7 +1994,7 @@ def phase_lm_train(dev: dict) -> float:
         held_before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        summary = launch_train.main(argv)
+        summary = launch_train.main(argv, cfg)
         t_full = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated()
         run = train_spans()
@@ -2002,7 +2010,7 @@ def phase_lm_train(dev: dict) -> float:
         # (c) kill after step 10 and resume
         t2 = time.perf_counter()
         shutil.rmtree(os.path.join(ckpt_dir, "step_00000020"))
-        runner, batches = launch_train.make_runner(argv)
+        runner, batches = launch_train.make_runner(argv, cfg)
         restored = {"step": runner.step, **restored_bits_equal(
             (runner.params, runner.opt_state), ckpt_dir, 10)}
         resumed = runner.run(batches)
@@ -2012,7 +2020,11 @@ def phase_lm_train(dev: dict) -> float:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     first, last = losses[0], losses[-1]
     resume_diff = abs(resumed["last_loss"] - last)
-    full = {"args": TRAIN_ARGS, "steps": len(losses), "losses": losses,
+    full = {"args": TRAIN_ARGS,
+            "reduced": {"n_layers": [ARCHS["smollm-360m"].n_layers,
+                                     cfg.n_layers],
+                        "why": "depth only, for the script's time cap"},
+            "steps": len(losses), "losses": losses,
             "first_loss": first, "last_loss": last,
             "ln_vocab": math.log(49152),
             "ms_per_step_median_steps_2_20": med * 1e3,
@@ -2084,6 +2096,13 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_LAYERS = 2
 MOE_BATCH = (4, 512)
 MOE_MESH = (2, 2)
+# (g) tensor parallelism with whole heads: mistral-nemo-12b at its
+# published widths, depth cut to 2 layers (1.887 B parameters: each path's
+# fp32 state 22.6 GB; the paths run one after the other), fp32 compute
+TP_ARCH = "mistral-nemo-12b"
+TP_LAYERS = 2
+TP_BATCH = (4, 256)
+TP_MESH = (2, 2)
 
 
 def card_mesh(shape, names) -> "object":
@@ -2367,15 +2386,18 @@ def sorted_paths(tree, prefix=""):
 def sharded_training() -> dict:
     """(d) full ``smollm-360m`` fp32, batch 8 x 256 of ``SyntheticLM``:
     ``make_sharded_train_step`` on a (2, 2) ("data", "model") mesh on the
-    card against ``make_train_step`` from the same weights and batches,
+    card (tensor-parallel over "model"; 15 heads on 2 positions split
+    through a head: ``tp_route``) against ``make_train_step`` from the
+    same weights and batches,
     the two taking turns step by step: the first 3 steps are compared, ms
     per step is the median of steps 2-6 (both paths' batches cycle); the
     memory a step of each path adds to what both paths hold."""
     from repro_torch.configs import ARCHS
     from repro_torch.distributed import sharding as sh
-    from repro_torch.models import init_params
+    from repro_torch.models import attention, init_params
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train import optimizer as opt
+    from repro_torch.distributed import collectives
     from repro_torch.train.train_step import (make_sharded_train_step,
                                               shard_train_state)
 
@@ -2398,7 +2420,8 @@ def sharded_training() -> dict:
     times = {k: [] for k in paths}
     peaks = {k: 0 for k in paths}
     peak_all = 0
-    after1 = {}
+    after1, calls = {}, {}
+    attention.tp_splits.clear()
     for i in range(SHARDED_STEPS + SHARDED_TIMED):
         for tag, path in paths.items():
             step, (p, s) = path
@@ -2406,9 +2429,11 @@ def sharded_training() -> dict:
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
             t = time.perf_counter()
-            p, s, m = step(p, s, batches[i % SHARDED_STEPS])
+            with collectives.counting() as count:
+                p, s, m = step(p, s, batches[i % SHARDED_STEPS])
             torch.cuda.synchronize()
             times[tag].append(time.perf_counter() - t)
+            calls[tag] = count.calls
             # what the step adds to what both paths hold
             peaks[tag] = max(peaks[tag],
                              torch.cuda.max_memory_allocated() - held)
@@ -2419,6 +2444,7 @@ def sharded_training() -> dict:
             if i == 0:
                 after1[tag] = sh.gather_tree(p)
     del paths
+    tp = tp_route(cfg, mesh, calls["sharded"])
     lr1 = float(opt.lr_at(ocfg, 1))
     dp = max(float((a - b).abs().max())
              for (_, a), (_, b) in zip(sorted_paths(after1["sharded"]),
@@ -2434,10 +2460,13 @@ def sharded_training() -> dict:
     ok = (loss_rel <= SHARDED_LOSS_RTOL and gn_rel <= SHARDED_GNORM_RTOL
           and dp <= SHARDED_PARAM_ATOL_LR * lr1
           and losses_rel <= SHARDED_LOSSES_RTOL
-          and all(np.isfinite(r["loss"]) for r in m2))
+          and all(np.isfinite(r["loss"]) for r in m2)
+          and tp["tensor_parallel"]
+          and set(tp["attention_splits"]) == {"through a head"})
     med = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
     return {"arch": cfg.name, "compute_dtype": "float32", "batch": [8, 256],
-            "mesh": mesh.shape, "pieces": n_pieces,
+            "mesh": mesh.shape, "pieces": n_pieces, **tp,
+            "collective_calls_sharded_step": calls["sharded"],
             "losses_one_device": [r["loss"] for r in m1],
             "losses_sharded": [r["loss"] for r in m2],
             "grad_norm_one_device": m1[0]["grad_norm"],
@@ -2459,6 +2488,121 @@ def sharded_training() -> dict:
             "peak_device_bytes_both_paths": peak_all,
             # parameters and both moments, fp32
             "state_bytes_one_path": 3 * 4 * n_params,
+            "ok": ok, "seconds": time.perf_counter() - t0}
+
+
+def tp_route(cfg, mesh, calls) -> dict:
+    """Whether the sharded steps just run were tensor-parallel, from what
+    ran: the reduce-scatter of their gradients (``collective_calls``; only
+    the tensor-parallel step makes it) and the attention splits that
+    ``models.attention.attn_apply_tp`` counted (``tp_splits``: whole
+    heads, the query heads of one KV head, or through a head)."""
+    from repro_torch.models import attention
+
+    splits = dict(attention.tp_splits)
+    return {"tensor_parallel": calls.get("reduce-scatter", 0) > 0
+            and bool(splits),
+            "model_axis": mesh.shape["model"],
+            "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "attention_splits": splits}
+
+
+def tp_whole_heads_training() -> dict:
+    """(g) ``mistral-nemo-12b`` at its published widths (d_model 5,120, 32
+    heads / 8 KV of 128, ff 14,336, vocab 131,072), depth cut to
+    ``TP_LAYERS``, fp32 compute, one ``TP_BATCH`` batch of ``SyntheticLM``:
+    ``make_sharded_train_step`` on a (2, 2) ("data", "model") mesh on the
+    card, tensor-parallel with whole heads at each position (16 query and 4
+    KV heads), against ``make_train_step`` from the same weights. As (f):
+    the one-device step first, its state freed before the sharded one's is
+    made; each path one warm-up step, then one step from the same state
+    timed by CUDA events; the step-1 loss, grad norm and parameters
+    compared under (d)'s bars; the collective calls of the sharded step;
+    the peak device memory of each path."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import attention, init_params
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              shard_train_state)
+
+    t0 = time.perf_counter()
+    full = ARCHS[TP_ARCH]
+    cfg = full.replace(n_layers=TP_LAYERS, compute_dtype="float32")
+    ocfg = OptimizerConfig(lr=3e-3, warmup_steps=10, total_steps=20)
+    mesh = card_mesh(TP_MESH, ("data", "model"))
+    torch.cuda.empty_cache()
+    params = init_params(cfg, device="cuda", seed=0)
+    n_params = sum(a.numel() for _, a in sorted_paths(params))
+    b = {k: v.cuda() for k, v in train_batch(
+        cfg, seed=0, batch=TP_BATCH[0], seq=TP_BATCH[1]).items()}
+
+    def timed(step, p, s):
+        step(p, s, b)                               # warm-up, dropped
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with collectives.counting() as count:
+            start.record()
+            out = step(p, s, b)
+            end.record()
+        torch.cuda.synchronize()
+        return out[0], out[2], start.elapsed_time(end), count.calls
+
+    st = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p1, m1, ms1, _ = timed(make_train_step(cfg, ocfg), params, st)
+    peak1 = torch.cuda.max_memory_allocated()
+    del st
+    ps, ss = shard_train_state(params, opt.init(params), mesh)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.tp_splits.clear()
+    p2, m2, ms2, calls = timed(make_sharded_train_step(cfg, ocfg, mesh), ps,
+                               ss)
+    peak2 = torch.cuda.max_memory_allocated()
+    tp = tp_route(cfg, mesh, calls)
+    del ps, ss
+    lr1 = float(opt.lr_at(ocfg, 1))
+    dp = max(float((sh.gather(a) - w).abs().max())
+             for (_, a), (_, w) in zip(sorted_paths(p2), sorted_paths(p1)))
+    del p1, p2
+    torch.cuda.empty_cache()
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(
+        float(m1["loss"]))
+    gn_rel = abs(float(m2["grad_norm"]) - float(m1["grad_norm"])) / float(
+        m1["grad_norm"])
+    ok = (loss_rel <= SHARDED_LOSS_RTOL and gn_rel <= SHARDED_GNORM_RTOL
+          and dp <= SHARDED_PARAM_ATOL_LR * lr1
+          and tp["tensor_parallel"]
+          and set(tp["attention_splits"]) == {"whole heads"}
+          and all(np.isfinite(float(m[k])) for m in (m1, m2)
+                  for k in ("loss", "grad_norm")))
+    return {"arch": full.name, "compute_dtype": "float32",
+            "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                        "why": "depth only: both paths' fp32 state and a "
+                               "step's transients on one 80 GB card; "
+                               "widths as published"},
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "params": n_params, "state_bytes_one_path": 3 * 4 * n_params,
+            "batch": list(TP_BATCH), "mesh": mesh.shape, **tp,
+            "collective_calls_sharded_step": calls,
+            "loss_one_device": float(m1["loss"]),
+            "loss_sharded": float(m2["loss"]),
+            "grad_norm_one_device": float(m1["grad_norm"]),
+            "grad_norm_sharded": float(m2["grad_norm"]),
+            "step1_loss_rel_err": loss_rel, "step1_grad_norm_rel_err": gn_rel,
+            "params_step1_max_abs_over_lr": dp / lr1,
+            "bars": {"loss_rtol": SHARDED_LOSS_RTOL,
+                     "grad_norm_rtol": SHARDED_GNORM_RTOL,
+                     "params_atol_over_lr": SHARDED_PARAM_ATOL_LR},
+            "step_ms_one_device": ms1, "step_ms_sharded": ms2,
+            "sharded_over_one_device": ms2 / ms1,
+            "peak_device_bytes_one_device": peak1,
+            "peak_device_bytes_sharded": peak2,
             "ok": ok, "seconds": time.perf_counter() - t0}
 
 
@@ -2624,21 +2768,23 @@ def measured_peaks() -> dict:
 def roofline_check(peaks: dict, lm_train_ms: float, fp32_step_ms: float
                    ) -> dict:
     """(e) ``Roofline`` of ``algo_flops`` / ``algo_hbm_bytes`` on the card's
-    measured peaks, for the step ``lm_train`` runs (smollm-360m, train, seq
-    256, batch 8; bf16 compute over fp32 masters, so the bf16 rate) and for
-    (d)'s one-device fp32 step (the fp32 rate); each bound must be at most
+    measured peaks, for the step ``lm_train`` runs (smollm-360m cut to
+    ``TRAIN_LAYERS`` blocks, train, seq 256, batch 8; bf16 compute over
+    fp32 masters, so the bf16 rate) and for (d)'s one-device fp32 step
+    (full smollm-360m, the fp32 rate); each bound must be at most
     the step measured in this process. One card: no link traffic, and the
     copy rate stands for the link (shards on one card exchange through
     its memory)."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch import roofline as rl
 
-    cfg = ARCHS["smollm-360m"]
+    full = ARCHS["smollm-360m"]
     args = ("train", 256, 8)
     out = {}
-    for tag, peak, measured in (
-            ("lm_train_bf16", peaks["bf16_flops"], lm_train_ms),
-            ("sharded_phase_fp32_one_device", peaks["fp32_flops"],
+    for tag, cfg, peak, measured in (
+            ("lm_train_bf16", full.replace(n_layers=TRAIN_LAYERS),
+             peaks["bf16_flops"], lm_train_ms),
+            ("sharded_phase_fp32_one_device", full, peaks["fp32_flops"],
              fp32_step_ms)):
         r = rl.Roofline(flops=rl.algo_flops(cfg, *args),
                         hbm_bytes=rl.algo_hbm_bytes(cfg, *args),
@@ -2658,7 +2804,9 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
     placement rules at full size on the production meshes, (b) the MoE
     all-to-all at deepseek-v2-lite's widths, (c) int8 gradient compression
     of a full smollm-360m gradient, (d) sharded training of full smollm-360m
-    on (2, 2), (f) MoE training of deepseek-v2-lite-16b (2 layers) on (2, 2)
+    on (2, 2) (tensor-parallel, through a head), (g) of mistral-nemo-12b at
+    its widths, 2 layers, on (2, 2) (tensor-parallel, whole heads), (f) MoE
+    training of deepseek-v2-lite-16b (2 layers) on (2, 2)
     with the global expert capacity, (e) the roofline on the card's
     measured peaks. One JSON line each."""
     t0 = time.perf_counter()
@@ -2670,6 +2818,8 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
     emit("lm_sharded.grad_compress", nvidia_smi=dev["nvidia_smi"], **c)
     d = sharded_training()
     emit("lm_sharded.train", nvidia_smi=dev["nvidia_smi"], **d)
+    g = tp_whole_heads_training()
+    emit("lm_sharded.tp_train", nvidia_smi=dev["nvidia_smi"], **g)
     f = moe_sharded_training()
     emit("lm_sharded.moe_train", nvidia_smi=dev["nvidia_smi"], **f)
     t_e = time.perf_counter()
@@ -2680,7 +2830,7 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
          phase_seconds=time.perf_counter() - t0)
     failed = [name for name, ok in (
         ("specs", a["ok"]), ("a2a", b["ok"]), ("grad_compress", c["ok"]),
-        ("train", d["ok"]), ("moe_train", f["ok"]),
+        ("train", d["ok"]), ("tp_train", g["ok"]), ("moe_train", f["ok"]),
         ("roofline", all(r["ok"] for r in e.values())))
         if not ok]
     if failed:
@@ -2694,6 +2844,7 @@ REMAT_SHORT = (1, 1024)      # (b): both steps fit the card
 # dry-run peak is under the card's capacity (the dry run's 24.9 GB at 4 x
 # 4096 with remat, written into PERF.md before the first run on the card)
 REMAT_LONG = (4, 4096)
+# (c)'s steps (step 1 left out of the median): few, for the script's time cap
 REMAT_STEPS = 5
 # remat's cost, timed in the phase: at (b)'s batch and at lm_train's
 REMAT_COST_TRAIN = (8, 256)

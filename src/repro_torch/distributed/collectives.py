@@ -9,13 +9,18 @@ run, whatever the devices. A tensor moves between shards with
 lives there. ``psum`` and ``ppermute`` serve the STKDE strategies;
 ``all_to_all``, ``all_gather`` and ``pmax`` the expert-parallel MoE layer,
 the parameter placement of ``sharding`` and the compressed gradient sum of
-``train.grad_compress``. All are built of ``torch`` ops that autograd
-differentiates (``.to``, indexing, ``torch.cat``, ``torch.stack``, adds).
+``train.grad_compress``; ``all_reduce``, ``pmax_row`` and ``all_gather_row``
+(a copy of the result on every member of a row of positions) the tensor
+parallel layers, and ``reduce_scatter`` the tensor-parallel step's
+gradients. All are built of ``torch`` ops that autograd differentiates
+(``.to``, indexing, ``torch.cat``, ``torch.stack``, adds).
 
 ``counting()`` adds up, while it is open, the bytes each receiving device
 (or mesh position, ``mesh.position_of``) gets per collective kind: the
 counterpart of the reference's ``launch.roofline.parse_collective_bytes``,
-with its keys. A tensor that stays where it is moves nothing.
+with its keys. A tensor that stays where it is moves nothing. A moved
+tensor that autograd differentiates counts again in backward, where its
+gradient moves back to the sender under the same kind.
 """
 from __future__ import annotations
 
@@ -77,16 +82,27 @@ def _call(kind: str) -> None:
         _COUNTER[0].calls[kind] += 1
 
 
-def _move(t: torch.Tensor, device, kind: str) -> torch.Tensor:
-    """``t.to(device)``, its bytes counted as ``kind`` traffic into
-    ``device`` when a counter is open and ``t`` lives elsewhere."""
+def _count(dst, t: torch.Tensor, kind: str) -> None:
     c = _COUNTER[0]
     if c is not None:
-        dst = _key(device)
-        if _key(t) != dst:
-            got = c.received.setdefault(dst, {})
-            got[kind] = got.get(kind, 0.0) + t.numel() * t.element_size()
-    return t.to(device)
+        got = c.received.setdefault(dst, {})
+        got[kind] = got.get(kind, 0.0) + t.numel() * t.element_size()
+
+
+def _move(t: torch.Tensor, device, kind: str) -> torch.Tensor:
+    """``t.to(device)``, its bytes counted as ``kind`` traffic into
+    ``device`` when a counter is open and ``t`` lives elsewhere; its
+    gradient's bytes into ``t``'s place when backward moves it back."""
+    if _COUNTER[0] is None:
+        return t.to(device)
+    src, dst = _key(t), _key(device)
+    if src == dst:
+        return t.to(device)
+    _count(dst, t, kind)
+    out = t.to(device)
+    if out.requires_grad:
+        out.register_hook(lambda g: _count(src, g, kind))
+    return out
 
 
 def shard_array(values) -> np.ndarray:
@@ -140,15 +156,69 @@ def pmax(shards: np.ndarray, dims: Union[int, Sequence[int]]) -> np.ndarray:
     return _reduce(shards, dims, torch.maximum)
 
 
-def all_gather(pieces: np.ndarray, dim: int) -> torch.Tensor:
+def all_gather(pieces: np.ndarray, dim: int, device=None) -> torch.Tensor:
     """The pieces of an object array concatenated along tensor dim ``dim``
     in row-major order of the array (``jax.lax.all_gather(..., tiled=True)``
-    over the array's axes), on the first piece's device. Callers gather
-    over some mesh axes and keep others by handing in a sub-array."""
+    over the array's axes), on ``device`` (default: the first piece's).
+    Callers gather over some mesh axes and keep others by handing in a
+    sub-array."""
     _call("all-gather")
     flat = list(np.asarray(pieces, dtype=object).reshape(-1))
-    dev = _mesh.device_of(flat[0])
+    dev = _mesh.device_of(flat[0]) if device is None else device
     return torch.cat([_move(p, dev, "all-gather") for p in flat], dim=dim)
+
+
+def reduce_scatter(shards: np.ndarray, dims: Union[int, Sequence[int]],
+                   dim: int, devices: np.ndarray) -> np.ndarray:
+    """``psum`` over the array axes ``dims`` followed by a cut of tensor dim
+    ``dim`` into ``n = devices.shape[-1]`` equal pieces, bit for bit: piece
+    ``i`` of a group is the sum, in row-major order of the members, of
+    their ``i``-th slices, added on ``devices[group + (i,)]``
+    (``jax.lax.psum_scatter(..., tiled=True)``, the sum of one slice made
+    where it stays). ``devices`` has the other axes' shape and then ``n``;
+    so has the result."""
+    _call("reduce-scatter")
+    out = np.empty(devices.shape, dtype=object)
+    n = devices.shape[-1]
+    for _, idx, members in _groups(shards, dims):
+        c = members[0].shape[dim] // n
+        for i in range(n):
+            dev = devices[idx + (i,)]
+            acc = None
+            for m in members:
+                part = _move(m.narrow(dim, i * c, c), dev, "reduce-scatter")
+                acc = part if acc is None else acc + part
+            out[idx + (i,)] = acc
+    return out
+
+
+# ------------------------------------------- over a row of positions (TP)
+def _everywhere(t: torch.Tensor, devices) -> list:
+    """``t`` on its own device and a copy on each other member's."""
+    return [_move(t, d, "all-reduce") for d in devices]
+
+
+def all_reduce(parts: Sequence[torch.Tensor], devices) -> list:
+    """The sum of one tensor per member of a row of positions (``devices``,
+    in order): ``psum`` onto the first member, then a copy on every member
+    (``jax.lax.psum``'s layout, the same bits at every member). Autograd's
+    backward sums the copies' gradients on the first member and sends that
+    sum back to every part."""
+    return _everywhere(psum(shard_array(parts), 0).item(), devices)
+
+
+def pmax_row(parts: Sequence[torch.Tensor], devices) -> list:
+    """``all_reduce``'s layout for the elementwise maximum (``pmax``)."""
+    return _everywhere(pmax(shard_array(parts), 0).item(), devices)
+
+
+def all_gather_row(parts: Sequence[torch.Tensor], dim: int, devices) -> list:
+    """The members' tensors concatenated along ``dim`` in order, on every
+    member's device (``jax.lax.all_gather(..., tiled=True)``: each member
+    receives the others' parts and keeps its own)."""
+    _call("all-gather")
+    return [torch.cat([_move(p, d, "all-gather") for p in parts], dim=dim)
+            for d in devices]
 
 
 def all_to_all(send: np.ndarray, dim: int) -> np.ndarray:

@@ -14,11 +14,19 @@ its own (equal in value, distinct in identity): the position identity that
 device. While its accounting runs (``tracking``), ``at`` names the position
 whose work runs now and ``device_of`` the device object of the position a
 tensor lives at. Without a tracker both cost nothing and change nothing.
+
+``tensor_parallel(row)`` opens the tensor-parallel context: ``row`` is one
+batch shard's row of positions over "model", in order, and ``tp_row()``
+gives it to the layers that split their work over it. ``each`` runs a
+function once per position of the row, at that position (``at``), on the
+members of per-position lists: the lockstep in which one controller runs
+the row's SPMD programs, with the collectives between the calls.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import contextvars
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -203,19 +211,23 @@ def current_position() -> Optional[int]:
 
 
 def recompute_context():
-    """A context manager that re-enters the position current now and the
-    tracker's function mode (nothing without a tracker): what a
-    checkpointed block's recompute (``remat``) runs under, since autograd
-    runs it during backward, after the caller's ``at`` has closed."""
-    tr = _TRACKING
-    if tr is None:
-        return contextlib.nullcontext()
-    return _recompute(tr, tr.current)
+    """A context manager that re-enters the tensor-parallel row, the
+    position current now and the tracker's function mode (each only where
+    there is one): what a checkpointed block's recompute (``remat``) runs
+    under, since autograd runs it during backward, after the caller's
+    ``tensor_parallel`` and ``at`` have closed."""
+    return _recompute(_TRACKING, _TRACKING.current if _TRACKING else None,
+                      _TP_ROW.get())
 
 
 @contextlib.contextmanager
-def _recompute(tr: _Tracking, pos: Optional[int]):
-    with tr.running(pos), tr.function_mode():
+def _recompute(tr: Optional[_Tracking], pos: Optional[int], row):
+    with contextlib.ExitStack() as stack:
+        if row is not None:
+            stack.enter_context(tensor_parallel(row))
+        if tr is not None:
+            stack.enter_context(tr.running(pos))
+            stack.enter_context(tr.function_mode())
         yield
 
 
@@ -230,3 +242,34 @@ def at(device):
         return
     with _TRACKING.running(pos):
         yield
+
+
+# ------------------------------------------------------ tensor parallelism
+_TP_ROW: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_tp_row", default=None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(row: Sequence[torch.device]):
+    """While open, ``row`` (a batch shard's positions over "model", in
+    order) is the row the tensor-parallel layers split their work over."""
+    tok = _TP_ROW.set(tuple(row))
+    try:
+        yield
+    finally:
+        _TP_ROW.reset(tok)
+
+
+def tp_row() -> Optional[Tuple[torch.device, ...]]:
+    """The row of the innermost ``tensor_parallel``, or ``None``."""
+    return _TP_ROW.get()
+
+
+def each(fn: Callable, *per_position) -> List:
+    """``[fn(*(a[j] for a in per_position)) for j]`` over the positions of
+    ``tp_row()``, each call at its position (``at``)."""
+    out = []
+    for j, dev in enumerate(_TP_ROW.get()):
+        with at(dev):
+            out.append(fn(*(a[j] for a in per_position)))
+    return out

@@ -424,23 +424,83 @@ def shard_blocks(blocks, spec: P, mesh: Mesh, axes) -> Sharded:
     return Sharded(pieces, spec, mesh, shape, blocks[0].dtype)
 
 
-def gather(leaf: Sharded, device=None) -> torch.Tensor:
+def gather(leaf: Sharded, device=None, index=None) -> torch.Tensor:
     """The whole tensor of a ``Sharded`` leaf, on ``device`` (default: the
     device of its first piece). Dims are put back from the last spec entry
     to the first, each through ``collectives.all_gather`` over the array
-    axes of that entry; a replicated leaf gives its one piece itself."""
-    arr = leaf.pieces
-    for dim in reversed(range(len(leaf.spec))):
-        n = len(P.axes_of(leaf.spec[dim]))
+    axes of that entry onto ``device``; a replicated leaf gives its one
+    piece itself.
+
+    ``index`` (mesh axis -> position) gathers over the other axes only: an
+    entry that splits over an axis of ``index`` keeps the piece at that
+    position (the tensor-parallel step's "model" piece of a position,
+    gathered over the batch axes). A leaf that does not split over such an
+    axis is whole, as GSPMD leaves it at every position."""
+    arr, spec = leaf.pieces, leaf.spec
+    if index:
+        sel, entries = [], []
+        for e in spec:
+            names = P.axes_of(e)
+            hit = [n for n in names if n in index]
+            if hit and len(names) != 1:
+                raise NotImplementedError(
+                    f"a piece at {index} of spec {spec}: {names} split one "
+                    f"dim jointly")
+            sel.extend([index[hit[0]]] if hit else [slice(None)] * len(names))
+            entries.append(None if hit else e)
+        arr = arr[tuple(sel) + (Ellipsis,)]
+        spec = P(*entries)
+    for dim in reversed(range(len(spec))):
+        n = len(P.axes_of(spec[dim]))
         if not n:
             continue
         lead = arr.shape[:arr.ndim - n]
         out = np.empty(lead, dtype=object)
         for idx in np.ndindex(lead):
-            out[idx] = collectives.all_gather(arr[idx], dim)
+            out[idx] = collectives.all_gather(arr[idx], dim, device)
         arr = out
     t = arr.reshape(()).item()
     return t if device is None else t.to(device)
+
+
+def split_dim(spec: P, axis: str) -> Optional[int]:
+    """The tensor dim ``spec`` splits over mesh ``axis``, or ``None``."""
+    for dim, e in enumerate(spec):
+        if axis in P.axes_of(e):
+            return dim
+    return None
+
+
+def reduce_scatter_leaf(like: Sharded, parts: np.ndarray) -> Sharded:
+    """The tensor-parallel step's gradient of ``like``, cut as ``like`` is.
+    ``parts`` is a (batch shards, "model") array of each position's
+    gradient of its piece (``gather(..., index={"model": j})``'s shape).
+    Each batch shard's gradient of a leaf not split over "model" is first
+    the sum of its row's parts in order (``psum`` onto the row's first
+    position); the pieces are then the sum over batch shards in row-major
+    order, cut over "data" (``collectives.reduce_scatter``: the psum's
+    bits, each piece added where it lives)."""
+    spec, mesh = like.spec, like.mesh
+    names = spec.mesh_axes()
+    if not set(names) <= {FSDP, TP} or len(names) != len(set(names)):
+        raise NotImplementedError(f"a tensor-parallel gradient of spec "
+                                  f"{spec}")
+    if TP not in names:
+        parts = collectives.psum(parts, 1)[:, None]
+    devices = _spec_devices(spec, mesh)
+    # the pieces' devices as (model, data): one reduce-scatter per model
+    # position, over the batch shards, cut into the "data" pieces
+    order = [names.index(a) for a in (TP, FSDP) if a in names]
+    devs = np.transpose(devices, order).reshape(
+        (mesh.shape[TP] if TP in names else 1, -1))
+    dim = split_dim(spec, FSDP)
+    pieces = np.empty(devs.shape, dtype=object)
+    for j in range(devs.shape[0]):
+        pieces[j] = collectives.reduce_scatter(
+            parts[:, j], 0, 0 if dim is None else dim, devs[j])
+    pieces = np.transpose(pieces.reshape(
+        np.transpose(devices, order).shape), np.argsort(order))
+    return Sharded(pieces, spec, mesh, like.shape, like.dtype)
 
 
 def shard_tree(tree, specs, mesh: Mesh):

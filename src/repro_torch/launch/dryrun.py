@@ -40,16 +40,24 @@ op's inputs, or where a mesh position's device object is passed (``.to``,
 target, and its backward a copy back. ``tests/test_torch_dryrun.py`` holds
 this to the count with each position on its own ``meta:k`` device.
 
-Known difference from the reference (ROADMAP §C): the port's sharded steps
-run each batch shard at the position of model index 0 with whole leaves
-gathered there, so a ``tp`` config's per-position peak is far above a
-GSPMD compile's. The cells report the port's own figure. No number here
-was measured on a card.
+What is tensor-parallel and what is not (ROADMAP §C.7): the train step of
+a config of attention without MLA and a swiglu or gelu MLP (the ``tp``
+configs, and any such config whose batch is not split over "model") runs
+each batch shard over its row of positions, each position computing with
+its "model" pieces, as a GSPMD compile partitions it; an ``fsdp`` config
+splits its batch over "model" and gathers whole leaves per batch shard, as
+the reference's layout does. The MoE, MLA, SSM and RWKV configs' train
+steps, and every config's sharded prefill and decode, still run each batch
+shard at the position of model index 0 with whole leaves gathered there,
+so their per-position peaks are far above a GSPMD compile's. The cells
+report the port's own figure. A moved tensor's gradient counts as
+traffic too (``collectives``). No number here was measured on a card.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -199,6 +207,7 @@ class _Tracker(TorchDispatchMode):
         self.live: Dict[int, tuple] = {}       # id(storage) -> (pos, bytes)
         self.held: Dict[Any, int] = {}         # pos -> live bytes
         self.peak: Dict[Any, int] = {}
+        self.largest: Dict[Any, int] = {}      # pos -> largest storage
         self.forced = None
         self.last = None                       # the last op's input position
         self.bytes_accessed = 0.0
@@ -222,6 +231,8 @@ class _Tracker(TorchDispatchMode):
         n = st.nbytes()
         self.live[id(st)] = (pos, n)
         self.held[pos] = self.held.get(pos, 0) + n
+        if n > self.largest.get(pos, 0):
+            self.largest[pos] = n
         if self.held[pos] > self.peak.get(pos, 0):
             self.peak[pos] = self.held[pos]
         weakref.finalize(st, self._free, id(st))
@@ -311,9 +322,10 @@ def account(fn: Callable, *args, place: Optional[Callable] = None,
 
     Returns ``memory`` (the fullest position's ``argument_size_in_bytes``,
     ``output_size_in_bytes``, ``temp_size_in_bytes`` = ``temp_per_device``
-    = peak minus arguments, ``peak_bytes``; ``per_position`` peaks),
-    ``cost`` (``flops``, ``bytes``), ``collectives``, ``seconds`` and
-    ``ops``."""
+    = peak minus arguments, ``peak_bytes``; ``per_position`` peaks;
+    ``largest_storage``: the largest storage each position made while
+    ``fn`` ran), ``cost`` (``flops``, ``bytes``), ``collectives``,
+    ``seconds`` and ``ops``."""
     by_device = mesh is None or not mesh.has_positions
     t0 = time.perf_counter()
     tracker = _Tracker(by_device)
@@ -330,6 +342,7 @@ def account(fn: Callable, *args, place: Optional[Callable] = None,
         tracker.adopt(fargs)
         args_held = dict(tracker.held)
         tracker.peak = dict(tracker.held)
+        tracker.largest = {}
         tracker.bytes_accessed = 0.0
         tracker.flops = 0
         with collectives.counting() as count:
@@ -361,6 +374,8 @@ def account(fn: Callable, *args, place: Optional[Callable] = None,
             "per_position": {str(k): int(v)
                              for k, v in sorted(tracker.peak.items(),
                                                 key=lambda kv: str(kv[0]))},
+            "largest_storage": {str(k): int(v) for k, v in sorted(
+                tracker.largest.items(), key=lambda kv: str(kv[0]))},
         },
         "cost": {"flops": float(tracker.flops),
                  "bytes": float(tracker.bytes_accessed)},
@@ -584,13 +599,30 @@ def run_built(cell: Cell, mesh) -> dict:
 
 
 # ------------------------------------------------------------------- runner
+def _cuts(cfg, shape, published_cfg, published_shape) -> dict:
+    """The fields of ``cfg`` (and the shape cell) that differ from the
+    published ones, each as [published, run]."""
+    out = {}
+    if published_cfg is not None:
+        for f in dataclasses.fields(cfg):
+            a, b = getattr(published_cfg, f.name), getattr(cfg, f.name)
+            if a != b:
+                out[f.name] = [a, b]
+    if published_shape is not None and shape != published_shape:
+        out["shape"] = [list(dataclasses.astuple(published_shape)),
+                        list(dataclasses.astuple(shape))]
+    return out
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: str,
              delta: bool = False, skip_existing: bool = False, cfg=None,
              shape=None, mesh=None) -> dict:
     """One (arch x shape x mesh) cell, its JSON written to
     ``outdir/mesh_kind/arch__shape.json``. ``cfg``, ``shape`` and ``mesh``
     override the arch's config, the shape cell and the production mesh
-    (a test's small ones)."""
+    (a test's small ones, or a published config cut in depth:
+    ``cfg=ARCHS[arch].replace(n_layers=2)``); the JSON's ``reduced`` then
+    lists each field that differs, as [published, run]."""
     cfg = cfg or ARCHS[arch]
     shape = shape or specs_lib.SHAPES[shape_name]
     tag = f"{mesh_kind}/{arch}__{shape_name}"
@@ -602,6 +634,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: str,
 
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
               "ok": False}
+    reduced = _cuts(cfg, shape, ARCHS.get(arch),
+                    specs_lib.SHAPES.get(shape_name))
+    if reduced:
+        result["reduced"] = reduced
     ok, why = specs_lib.cell_applicable(cfg, shape)
     if not ok:
         result.update(skipped=True, reason=why, ok=True)

@@ -9,7 +9,9 @@ Runs on the visible cards unless ``--device`` names another device
 ``("data", "model")`` with ``m = min(--model-axis, n_dev)``; on a mesh of
 more than one device the parameters and AdamW moments are placed by
 ``sharding.param_specs(fsdp=True)`` and each step is
-``make_sharded_train_step`` (batch over "data"); on one device it is
+``make_sharded_train_step`` (batch over "data"; tensor-parallel over
+"model" for a config of attention with a swiglu or gelu MLP, as GSPMD
+runs the reference's step); on one device it is
 ``make_train_step``. Weights come from ``init_params(seed=0)``, batches
 from ``SyntheticLM``, fault tolerance from ``train.runner`` (auto-resume
 from ``--ckpt-dir``, async checkpoints every ``--ckpt-every`` steps, a
@@ -55,11 +57,13 @@ def train_mesh(device=None, model_axis: int = 1) -> Mesh:
     return Mesh(arr.reshape(n_dev // m, m), ("data", "model"))
 
 
-def make_runner(argv=None):
+def make_runner(argv=None, cfg=None):
     """The ``TrainRunner`` that ``main`` drives and its stream of batches
-    on the run's device, from the command line ``argv``. The runner has
-    already resumed from ``--ckpt-dir`` when that holds a checkpoint; the
-    stream starts at the runner's step."""
+    on the run's device, from the command line ``argv``; ``cfg``, where
+    given, replaces ``--arch``'s config (a published one cut in depth:
+    ``ARCHS[arch].replace(n_layers=8)``). The runner has already resumed
+    from ``--ckpt-dir`` when that holds a checkpoint; the stream starts at
+    the runner's step."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true",
@@ -76,7 +80,7 @@ def make_runner(argv=None):
                     help="torch device (default: cuda, the card)")
     args = ap.parse_args(argv)
 
-    cfg = ARCHS[args.arch]
+    cfg = cfg or ARCHS[args.arch]
     if args.reduced:
         cfg = reduce_cfg(cfg)
     mesh = train_mesh(args.device, args.model_axis)
@@ -108,8 +112,8 @@ def make_runner(argv=None):
     return runner, batches()
 
 
-def main(argv=None):
-    runner, batches = make_runner(argv)
+def main(argv=None, cfg=None):
+    runner, batches = make_runner(argv, cfg)
     prev = signal.getsignal(signal.SIGTERM)
     runner.install_preemption_hook()
     try:

@@ -9,11 +9,14 @@ scores are ``-1e30``.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed import collectives
+from ..distributed import mesh as _mesh
 from . import layers
 
 _F32 = torch.float32
@@ -122,26 +125,18 @@ def _flash_attn(q, k, v, q_pos, kv_pos, causal, window, cq, ckv):
     return out[:, :Sq]
 
 
-def attn_apply(
-    cfg,
-    p: dict,
-    x: torch.Tensor,                     # (B, S, D)
-    positions: torch.Tensor,             # (S,)
-    causal: bool = True,
-    kv_source: Optional[torch.Tensor] = None,   # cross-attention memory
-    use_rope: bool = True,
-) -> torch.Tensor:
-    """Training / prefill self- or cross-attention (no cache)."""
-    dt = x.dtype
-    B, S, D = x.shape
+def _attend(cfg, q, k, v, positions, causal: bool, cross: bool,
+            use_rope: bool):
+    """The attention of projected q (B, S, H*dh) and k / v (B, Skv, Hkv*dh)
+    (``cfg``'s head counts); returns (B, S, H*dh) before ``wo``."""
+    B, S = q.shape[:2]
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    src = x if kv_source is None else kv_source
-    q = _split_heads(x @ p["wq"].to(dt), H, dh)
-    k = _split_heads(src @ p["wk"].to(dt), Hkv, dh)
-    v = _split_heads(src @ p["wv"].to(dt), Hkv, dh)
-    kv_pos = positions if kv_source is None else torch.arange(
-        src.shape[1], device=x.device)
-    if use_rope and kv_source is None:
+    q = _split_heads(q, H, dh)
+    k = _split_heads(k, Hkv, dh)
+    v = _split_heads(v, Hkv, dh)
+    kv_pos = torch.arange(k.shape[1], device=q.device) if cross \
+        else positions
+    if use_rope and not cross:
         q = layers.apply_rope(q, positions[None], cfg.rope_theta)
         k = layers.apply_rope(k, kv_pos[None], cfg.rope_theta)
     k = _repeat_kv(k, cfg.q_per_kv)
@@ -154,7 +149,103 @@ def attn_apply(
     else:
         out = _full_attn(q, k, v, positions, kv_pos, causal,
                          cfg.sliding_window)
-    return out.reshape(B, S, H * dh) @ p["wo"].to(dt)
+    return out.reshape(B, S, H * dh)
+
+
+def attn_apply(
+    cfg,
+    p: dict,
+    x: torch.Tensor,                     # (B, S, D)
+    positions: torch.Tensor,             # (S,)
+    causal: bool = True,
+    kv_source: Optional[torch.Tensor] = None,   # cross-attention memory
+    use_rope: bool = True,
+) -> torch.Tensor:
+    """Training / prefill self- or cross-attention (no cache)."""
+    dt = x.dtype
+    src = x if kv_source is None else kv_source
+    out = _attend(cfg, x @ p["wq"].to(dt), src @ p["wk"].to(dt),
+                  src @ p["wv"].to(dt), positions, causal,
+                  kv_source is not None, use_rope)
+    return out @ p["wo"].to(dt)
+
+
+# the splits ``attn_apply_tp`` took, one count a call: "whole layer",
+# "whole heads", "one KV head" or "through a head" (read and cleared by
+# callers that must know which ran)
+tp_splits: collections.Counter = collections.Counter()
+
+
+def attn_apply_tp(cfg, ps, xs, positions, causal: bool = True,
+                  kv_source=None, use_rope: bool = True):
+    """``attn_apply`` over the row of ``distributed.mesh.tp_row()``: one
+    parameter tree, input, position vector (and cross-attention memory)
+    per position, one output per position.
+
+    ``wq`` / ``wk`` / ``wv`` are column-parallel and ``wo`` row-parallel,
+    so each position's ``wo`` rows give a partial sum of the output, added
+    by ``all_reduce``. Where ``wq``'s columns split into whole query heads,
+    each position attends with its own: with its own KV heads where those
+    split whole too, else with the one KV head its query heads read,
+    taken from ``wk`` / ``wv``'s columns gathered whole
+    (``all_gather_row``). Where a split cuts through a query head, or the
+    query heads of a position read more than one KV head that is not its
+    own, every projection is gathered whole at every position, as a GSPMD
+    reshard would, the attention computed there whole, and only ``wo``'s
+    row split divides the work. Leaves left whole (a width that did not
+    divide) give every position the whole layer. Each call counts its
+    split in ``tp_splits``."""
+    row = _mesh.tp_row()
+    M = len(row)
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    srcs = xs if kv_source is None else kv_source
+    cross = kv_source is not None
+    width = {"wq": H * dh, "wk": Hkv * dh, "wv": Hkv * dh}
+
+    def project(name, inputs):
+        """The projection's columns, gathered whole where split."""
+        cols = _mesh.each(lambda p, x: x @ p[name].to(x.dtype), ps, inputs)
+        if cols[0].shape[-1] == width[name]:
+            return cols
+        return collectives.all_gather_row(cols, -1, row)
+
+    def each_attn(c):
+        return _mesh.each(lambda p, x, s, pos: attn_apply(
+            c, p, x, pos, causal, s if cross else None, use_rope),
+            ps, xs, srcs, positions)
+
+    if ps[0]["wq"].shape[-1] == width["wq"]:
+        tp_splits["whole layer"] += 1
+        return each_attn(cfg)
+    hq = H // M
+    if H % M == 0 and Hkv % M == 0:
+        tp_splits["whole heads"] += 1
+        outs = each_attn(cfg.replace(n_heads=hq, n_kv_heads=Hkv // M,
+                                     d_head=dh))
+    elif H % M == 0 and cfg.q_per_kv % hq == 0:
+        tp_splits["one KV head"] += 1
+        local = cfg.replace(n_heads=hq, n_kv_heads=1, d_head=dh)
+        k, v = project("wk", srcs), project("wv", srcs)
+
+        def one_kv_head(j, p, x, k, v, pos):
+            g = j * hq // cfg.q_per_kv           # the KV head it reads
+            o = _attend(local, x @ p["wq"].to(x.dtype),
+                        k.narrow(-1, g * dh, dh), v.narrow(-1, g * dh, dh),
+                        pos, causal, cross, use_rope)
+            return o @ p["wo"].to(o.dtype)
+
+        outs = _mesh.each(one_kv_head, range(M), ps, xs, k, v, positions)
+    else:
+        tp_splits["through a head"] += 1
+        q, k, v = project("wq", xs), project("wk", srcs), project("wv", srcs)
+        n = ps[0]["wo"].shape[0]
+
+        def rows_of_wo(j, p, q, k, v, pos):
+            o = _attend(cfg, q, k, v, pos, causal, cross, use_rope)
+            return o.narrow(-1, j * n, n) @ p["wo"].to(o.dtype)
+
+        outs = _mesh.each(rows_of_wo, range(M), ps, q, k, v, positions)
+    return collectives.all_reduce(outs, row)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype,

@@ -4,6 +4,11 @@ Parameters are plain nested dicts of tensors (fp32 masters) in the reference
 package's tree layout; compute casts to ``cfg.compute_dtype``. Every
 initialiser draws from an explicit ``torch.Generator`` on the device the
 parameters are made on.
+
+The ``*_tp`` functions are the tensor-parallel forms, run under
+``distributed.mesh.tensor_parallel``: they take one parameter tree per
+position of the row (each holding that position's pieces) and one
+activation per position, and give one per position.
 """
 from __future__ import annotations
 
@@ -12,6 +17,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed import collectives
+from ..distributed import mesh as _mesh
 
 _F32 = torch.float32
 
@@ -118,6 +126,18 @@ def mlp_apply(cfg, p, x):
     return (g * u) @ p["wo"].to(dt)
 
 
+def mlp_apply_tp(cfg, ps, xs):
+    """``mlp_apply`` over the row: ``wg`` / ``wu`` / ``wi`` column-parallel
+    and ``wo`` row-parallel, so that each position's ``mlp_apply`` on its
+    pieces is a partial sum of the output, summed by ``all_reduce``. A
+    hidden width that did not divide leaves every leaf whole: each
+    position then computes the whole MLP."""
+    outs = _mesh.each(lambda p, x: mlp_apply(cfg, p, x), ps, xs)
+    if ps[0]["wo"].shape[0] == cfg.d_ff:
+        return outs
+    return collectives.all_reduce(outs, _mesh.tp_row())
+
+
 # --------------------------------------------------------------- embedding
 def embedding_init(gen: torch.Generator, cfg) -> dict:
     return {"tok": embed_init(gen, (cfg.vocab, cfg.d_model))}
@@ -136,3 +156,12 @@ def logits_from_hidden(cfg, params, h):
     else:
         w = params["head"].to(h.dtype)
     return (h @ w).to(_F32)
+
+
+def logits_from_hidden_tp(cfg, ps, hs):
+    """``logits_from_hidden`` at each position of the row: from its piece of
+    ``head`` (embed x vocab/M) or of the tied ``embed.tok`` (vocab/M x
+    embed), the logits of its range of the vocabulary; never gathered. A
+    vocabulary that did not divide leaves the leaf, and the logits, whole
+    at every position."""
+    return _mesh.each(lambda p, h: logits_from_hidden(cfg, p, h), ps, hs)

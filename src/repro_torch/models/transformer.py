@@ -20,6 +20,15 @@ Families:
   audio (whisper)    encoder (bidirectional attn over stub frame embeddings)
                      + decoder with cross-attention
   vlm (llava)        decoder over [vision stub embeds ; text embeds]
+
+``forward_tp`` is ``forward`` under ``distributed.mesh.tensor_parallel``
+for the configs ``tp_covers`` (attention without MLA, a swiglu or gelu
+MLP): one parameter tree per position of the row, each holding that
+position's "model" pieces (Megatron's column / row splits; the embedding,
+the head and so the logits split by vocabulary), the residual stream
+replicated at every position, the row's sums through
+``distributed.collectives``. Each block, remat included, runs the whole
+row in lockstep (``mesh.each``).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 from torch.utils import checkpoint as _checkpoint
 
 from .. import _device
+from ..distributed import collectives
 from ..distributed import mesh as _mesh
 from ..distributed import sharding as _sh
 from . import attention, layers, mla, moe, rwkv, ssm
@@ -294,3 +304,127 @@ def forward(
                           enc_out=enc_out)
     x = layers.apply_norm(cfg, x, params["final_norm"])
     return layers.logits_from_hidden(cfg, params, x), aux
+
+
+# ============================================================ on a TP row
+def tp_covers(cfg) -> bool:
+    """Does ``forward_tp`` run this config? Attention without MLA and a
+    swiglu or gelu MLP, no shared attention block (whisper's encoder and
+    cross-attention and llava's vision prefix included)."""
+    return (cfg.mixer == "attn" and not cfg.mla
+            and cfg.mlp in ("swiglu", "gelu")
+            and cfg.shared_attn_every == 0)
+
+
+def _norm_tp(cfg, xs, ws):
+    return _mesh.each(lambda x, w: layers.apply_norm(cfg, x, w), xs, ws)
+
+
+def _add(xs, ys):
+    return _mesh.each(torch.add, xs, ys)
+
+
+def _layer_tp(trees, i: int):
+    return [layer(t, i) for t in trees]
+
+
+def _block_tp(cfg, bps, xs, positions, enc_outs=None):
+    """``_block_apply`` over the row (the covered configs have no aux)."""
+    xs = _add(xs, attention.attn_apply_tp(
+        cfg, [b["attn"] for b in bps],
+        _norm_tp(cfg, xs, [b["norm1"] for b in bps]), positions,
+        use_rope=cfg.use_rope))
+    if enc_outs is not None:
+        xs = _add(xs, attention.attn_apply_tp(
+            cfg, [b["xattn"] for b in bps],
+            _norm_tp(cfg, xs, [b["norm_x"] for b in bps]), positions,
+            causal=False, kv_source=enc_outs, use_rope=False))
+    return _add(xs, layers.mlp_apply_tp(
+        cfg, [b["mlp"] for b in bps],
+        _norm_tp(cfg, xs, [b["norm2"] for b in bps])))
+
+
+def _enc_block_tp(enc_cfg, bps, xs, positions):
+    xs = _add(xs, attention.attn_apply_tp(
+        enc_cfg, [b["attn"] for b in bps],
+        _norm_tp(enc_cfg, xs, [b["norm1"] for b in bps]), positions,
+        causal=False, use_rope=False))
+    return _add(xs, layers.mlp_apply_tp(
+        enc_cfg, [b["mlp"] for b in bps],
+        _norm_tp(enc_cfg, xs, [b["norm2"] for b in bps])))
+
+
+def _positions_tp(xs):
+    return _mesh.each(lambda x: torch.arange(x.shape[1], device=x.device),
+                      xs)
+
+
+def encode_tp(cfg, ps, frames):
+    """``encode`` over the row: ``frames`` one (B, S_enc, D) per position;
+    each block checkpointed under ``remat``."""
+    dt = layers.dtype_of(cfg.compute_dtype)
+    xs = _mesh.each(lambda f: f.to(dt) + layers.sinusoidal_positions(
+        f.shape[1], cfg.d_model, f.device).to(dt)[None], frames)
+    positions = _positions_tp(xs)
+    enc_cfg = cfg.replace(mixer="attn", mla=False, mlp="gelu")
+    blocks = [p["enc_blocks"] for p in ps]
+    remat = _rematted(cfg)
+    for i in range(next(leaves(blocks[0])).shape[0]):
+        xs = _run_block(remat, _enc_block_tp, enc_cfg,
+                        _layer_tp(blocks, i), xs, positions)
+    return _norm_tp(cfg, xs, [p["enc_norm"] for p in ps])
+
+
+def embed_tp(cfg, ps, tokens, vision_embeds=None):
+    """``embed`` over the row, vocabulary-parallel: each position looks up
+    the ids of its range of ``embed.tok`` (zeros for the others) and
+    ``all_reduce`` adds the row's rows; then the vision prefix. A table
+    left whole looks every id up at every position."""
+    dt = layers.dtype_of(cfg.compute_dtype)
+    n = ps[0]["embed"]["tok"].shape[0]
+
+    def lookup(j, p, ids):
+        w = p["embed"]["tok"].to(dt)
+        if n == cfg.vocab:
+            return w[ids]
+        local = ids - j * n
+        hit = (local >= 0) & (local < n)
+        x = w[local.clamp(0, n - 1)]
+        return torch.where(hit[..., None], x,
+                           torch.zeros((), dtype=dt, device=x.device))
+
+    row = _mesh.tp_row()
+    xs = _mesh.each(lookup, range(len(row)), ps, tokens)
+    if n != cfg.vocab:
+        xs = collectives.all_reduce(xs, row)
+    if vision_embeds is not None:
+        xs = _mesh.each(lambda x, v: torch.cat([v.to(dt), x], dim=1), xs,
+                        vision_embeds)
+    return xs
+
+
+def forward_tp(cfg, ps, tokens, vision_embeds=None, audio_frames=None):
+    """``forward`` over the row of ``mesh.tp_row()``: ``ps`` one parameter
+    tree per position, the inputs one tensor per position (the batch
+    shard's rows, replicated over the row). Returns each position's fp32
+    logits (B, S_total, its range of the vocabulary) and the aux (zero;
+    on the row's first position)."""
+    dt = layers.dtype_of(cfg.compute_dtype)
+    xs = embed_tp(cfg, ps, tokens, vision_embeds)
+    positions = _positions_tp(xs)
+    enc_outs = None
+    if cfg.enc_dec:
+        if audio_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             "audio_frames")
+        enc_outs = encode_tp(cfg, ps, audio_frames)
+        xs = _mesh.each(lambda x: x + layers.sinusoidal_positions(
+            x.shape[1], cfg.d_model, x.device).to(dt)[None], xs)
+    blocks = [p["blocks"] for p in ps]
+    remat = _rematted(cfg)
+    for i in range(next(leaves(blocks[0])).shape[0]):
+        xs = _run_block(remat, _block_tp, cfg, _layer_tp(blocks, i), xs,
+                        positions, enc_outs)
+    xs = _norm_tp(cfg, xs, [p["final_norm"] for p in ps])
+    aux = torch.zeros((), dtype=_F32, device=xs[0].device)
+    return layers.logits_from_hidden_tp(cfg, ps, xs), aux

@@ -12,7 +12,13 @@ device (``tokens``, ``labels``, optional ``mask``; ``vision_embeds`` /
 ``make_sharded_train_step(cfg, opt_cfg, mesh)`` is the same contract on a
 ``distributed.Mesh`` of shards (the reference's GSPMD step): parameters and
 moments placed by ``sharding.param_specs(fsdp=True)``
-(``shard_train_state``), the batch split over the mesh's batch axes.
+(``shard_train_state``), the batch split over the mesh's batch axes. Where
+the batch is not split over "model" and a leaf's spec splits "model", a
+config that ``models.transformer.tp_covers`` runs tensor-parallel inside
+each batch shard, as GSPMD partitions the reference's step: each position
+of the shard's row over "model" computes with its own pieces, gathered
+over the batch axes only; the embedding, the head, the logits and the
+cross-entropy are split by vocabulary.
 
 The reference's ``remat`` (``jax.checkpoint`` per layer) is the port's
 too: with ``cfg.remat`` (every full config) the forward checkpoints each
@@ -30,7 +36,7 @@ from ..distributed import collectives
 from ..distributed import mesh as _mesh
 from ..distributed import sharding as _sh
 from ..models import forward, moe
-from ..models.transformer import leaves, tree_map
+from ..models.transformer import forward_tp, leaves, tp_covers, tree_map
 from . import optimizer as opt
 
 _F32 = torch.float32
@@ -146,21 +152,35 @@ def shard_train_state(params, opt_state: opt.OptState, mesh, specs=None):
                          step=opt_state.step.to(mesh.first_device)))
 
 
-def _global_loss_fn(cfg, n_valid: torch.Tensor, n_tok: torch.Tensor):
+def _one_device_terms(cfg):
+    """``(params, batch) -> (nll, z, aux, mask)`` of ``forward`` on one
+    device: the per-token NLL, the ``logsumexp`` the z-loss squares, the
+    aux loss and the batch's mask (or ``None``)."""
+    def terms(params, batch):
+        logits, aux = _logits(cfg, params, batch)
+        return (_nll(logits, batch["labels"]),
+                torch.logsumexp(logits, dim=-1), aux, batch.get("mask"))
+
+    return terms
+
+
+def _global_loss_fn(cfg, n_valid: torch.Tensor, n_tok: torch.Tensor,
+                    terms=None):
     """A batch shard's loss with the terms normalised by the global batch's
     counts (CE by its valid positions, the z-loss by its tokens), so that
     the shards' losses, and their gradients, sum to the global ones. A
     MoE config's aux is zero here: under ``moe.global_dispatch`` the step
-    adds the global one (``moe.global_aux``)."""
+    adds the global one (``moe.global_aux``). ``terms`` gives the
+    unnormalised terms (default ``_one_device_terms``; ``_tp_terms`` on a
+    tensor-parallel row)."""
+    terms = terms or _one_device_terms(cfg)
+
     def loss_fn(params, batch):
-        logits, aux = _logits(cfg, params, batch)
-        dev = _mesh.device_of(logits)
-        nll = _nll(logits, batch["labels"])
-        mask = batch.get("mask")
+        nll, z, aux, mask = terms(params, batch)
+        dev = _mesh.device_of(nll)
         ce_sum = (nll.sum() if mask is None
                   else (nll * mask.to(torch.float32)).sum())
         ce = ce_sum / n_valid.to(dev)
-        z = torch.logsumexp(logits, dim=-1)
         zl = Z_LOSS_COEF * (torch.sum(torch.square(z)) / n_tok.to(dev))
         return ce + aux + zl, {"ce": ce, "aux": aux}
 
@@ -210,16 +230,142 @@ def _moe_global_step(cfg, loss_fn, params, batch, devs, rows):
     return (total.detach(), parts), grads
 
 
+def vocab_parallel_nll(logits, labels):
+    """The per-position NLL and ``logsumexp`` (the z-loss's ``z``) of
+    vocabulary-split logits over the row of ``mesh.tp_row()``: position
+    ``j`` holds logits (B, S, n) of ids ``[j n, (j + 1) n)`` and the labels
+    (B, S). The reference's sharding-aware ``cross_entropy``: the row max
+    by ``pmax`` (a constant of the gradient), the sums of the exponentials
+    by ``psum``, the label logit by a one-hot select within each range and
+    ``psum``; both results on the row's first position."""
+    row = _mesh.tp_row()
+    n = logits[0].shape[-1]
+    m = collectives.pmax_row(_mesh.each(
+        lambda lg: lg.amax(dim=-1).detach(), logits), row)
+    shifted = _mesh.each(lambda lg, mj: lg - mj[..., None], logits, m)
+
+    def label_logit(j, sh, lab):
+        iota = torch.arange(n, device=sh.device)
+        hit = iota == (lab.long() - j * n)[..., None]
+        return torch.sum(torch.where(hit, sh, 0.0), dim=-1)
+
+    lse = torch.log(_psum_list(_mesh.each(
+        lambda sh: torch.sum(torch.exp(sh), dim=-1), shifted)))
+    nll = lse - _psum_list(_mesh.each(label_logit, range(len(row)), shifted,
+                                      labels))
+    return nll, m[0] + lse
+
+
+def _tp_terms(cfg):
+    """``_one_device_terms`` over a tensor-parallel row: ``(per-position
+    parameter trees, per-position batch dicts) -> (nll, z, aux, mask)`` on
+    the row's first position, the NLL and ``z`` from
+    ``vocab_parallel_nll``: no position holds the logits of the whole
+    vocabulary. Logits left whole (a vocabulary that did not divide) give
+    the one-device terms."""
+    def terms(ps, parts):
+        kw = {}
+        if cfg.frontend == "vision":
+            kw["vision_embeds"] = [b["vision_embeds"] for b in parts]
+        if cfg.enc_dec:
+            kw["audio_frames"] = [b["audio_frames"] for b in parts]
+        T = parts[0]["tokens"].shape[1]
+        logits, aux = forward_tp(cfg, ps, [b["tokens"] for b in parts],
+                                 **kw)
+        logits = [lg[:, -T:] for lg in logits]
+        if logits[0].shape[-1] == cfg.vocab:
+            nll = _nll(logits[0], parts[0]["labels"])
+            z = torch.logsumexp(logits[0], dim=-1)
+        else:
+            nll, z = vocab_parallel_nll(logits,
+                                        [b["labels"] for b in parts])
+        return nll, z, aux, parts[0].get("mask")
+
+    return terms
+
+
+def row_pieces(params, row):
+    """Each position's parameter tree on a tensor-parallel row: every
+    ``Sharded`` leaf gathered over the batch axes onto the position, its
+    "model" piece kept (``sharding.gather(..., index={"model": j})``)."""
+    out = []
+    for j, dev in enumerate(row):
+        with _mesh.at(dev):
+            out.append(tree_map(
+                lambda p: _sh.gather(p, dev, index={_sh.TP: j}), params))
+    return out
+
+
+def row_value_and_grad(loss_fn, ps, parts):
+    """``value_and_grad`` of a row's loss: ``((total, parts), one gradient
+    tree per position)``."""
+    (total, out), g = value_and_grad(
+        lambda t, b: loss_fn([t[j] for j in range(len(t))], b),
+        dict(enumerate(ps)), parts)
+    return (total, out), [g[j] for j in range(len(ps))]
+
+
+def _tp_applies(cfg, mesh, params, batch_over_model: bool) -> bool:
+    """Does the layout make the step tensor-parallel (GSPMD's choice)?"""
+    return (not batch_over_model and tp_covers(cfg)
+            and mesh.shape.get(_sh.TP, 1) > 1
+            and any(_sh.TP in p.spec.mesh_axes() for p in leaves(params)))
+
+
+def _tp_step(cfg, loss_fn, params, batch, mesh, axes, rows):
+    """``((total, parts), Sharded gradients)`` of the tensor-parallel step:
+    each batch shard's forward and backward over its row of positions
+    (``row_value_and_grad`` in ``tensor_parallel``), its rows of the batch
+    at every position of the row; then every leaf's gradient pieces summed
+    over the batch shards and cut over "data"
+    (``sharding.reduce_scatter_leaf``)."""
+    grid = np.asarray(mesh.devices_of(tuple(axes) + (_sh.TP,)),
+                      dtype=object).reshape(-1, mesh.shape[_sh.TP])
+    K, M = grid.shape
+    totals, ces, auxs, grads = [], [], [], []
+    for k in range(K):
+        row = tuple(grid[k])
+        with _mesh.at(row[0]), _mesh.tensor_parallel(row):
+            parts = _mesh.each(lambda dev: {
+                name: v.narrow(0, k * rows, rows).to(dev)
+                for name, v in batch.items()}, row)
+            ps = row_pieces(params, row)
+            (total, p), g = row_value_and_grad(loss_fn, ps, parts)
+            del ps
+        totals.append(total)
+        ces.append(p["ce"])
+        auxs.append(p["aux"])
+        grads.extend(g)
+    total = _psum_list(totals)
+    parts = {"ce": _psum_list(ces), "aux": _psum_list(auxs)}
+
+    def leaf(p, *gs):
+        arr = np.empty((K, M), dtype=object)
+        for i, g in enumerate(gs):
+            arr[i // M, i % M] = g
+        return _sh.reduce_scatter_leaf(p, arr)
+
+    return (total, parts), tree_map(leaf, params, *grads)
+
+
 def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
     """``(params, batch) -> ((total, parts), grads)`` on a mesh: the global
     batch (a dict of whole tensors) split over ``sharding.batch_axes`` by
-    ``data_specs``, each batch shard's forward and backward on its device
-    with the ``Sharded`` parameters gathered there and its loss terms
-    normalised by the global counts, the shards' losses and gradients summed
-    in row-major order (``psum``); the gradients come back cut as the
-    parameters are (``Sharded``). ``batch_over_model`` splits the batch
-    over the model axis too (``data_specs(include_model=True)``: the
-    reference's layout for an ``fsdp`` config).
+    ``data_specs``, each batch shard's loss terms normalised by the global
+    counts, the shards' losses and gradients summed in row-major order; the
+    gradients come back cut as the parameters are (``Sharded``).
+    ``batch_over_model`` splits the batch over the model axis too
+    (``data_specs(include_model=True)``: the reference's layout for an
+    ``fsdp`` config).
+
+    The layout decides the path, as it does for GSPMD. With the batch not
+    split over "model", a leaf's spec splitting "model" and a config that
+    ``tp_covers``, each batch shard runs tensor-parallel over its row of
+    positions (``_tp_step``): no position gathers a "model"-split leaf
+    whole or holds the whole vocabulary's logits. Otherwise each batch
+    shard's forward and backward run on its device (the position at model
+    index 0) with the ``Sharded`` parameters gathered whole there (ZeRO-3),
+    and the shards' gradients are summed (``psum``) and cut.
 
     A MoE config on more than one batch shard computes the reference's
     GSPMD step, the one-device function on the global batch: expert
@@ -239,8 +385,12 @@ def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
         n_tok = torch.tensor(float(labels.numel()), device=dev0)
         n_valid = (n_tok if mask is None else torch.clamp(
             mask.to(torch.float32).sum(), min=1.0).to(dev0))
-        loss_fn = _global_loss_fn(cfg, n_valid, n_tok)
         rows = labels.shape[0] // len(devs)
+        if _tp_applies(cfg, mesh, params, batch_over_model):
+            return _tp_step(cfg, _global_loss_fn(cfg, n_valid, n_tok,
+                                                 _tp_terms(cfg)),
+                            params, batch, mesh, axes, rows)
+        loss_fn = _global_loss_fn(cfg, n_valid, n_tok)
         if cfg.mlp == "moe" and len(devs) > 1:
             (total, parts), grads = _moe_global_step(
                 cfg, loss_fn, params, batch, devs, rows)
@@ -316,16 +466,18 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, mesh,
 
     Parameters and AdamW moments are ``Sharded`` leaves
     (``shard_train_state``). Gradients come from
-    ``make_sharded_value_and_grad`` (batch shards on their devices, the
-    parameters gathered there, the shards' gradients summed in row-major
-    order and cut into the parameters' pieces), the update from
+    ``make_sharded_value_and_grad`` (each batch shard tensor-parallel over
+    its row of positions, or on one device with the parameters gathered
+    there; the shards' gradients summed in row-major order and cut into the
+    parameters' pieces), the update from
     ``sharded_update`` (each piece where it lives, one global norm). Same
     contract as ``make_train_step``: new tensors, inputs left alone.
 
     A mesh of one shard gives ``make_train_step`` itself. A MoE config on
     any mesh gives the reference's step on the global batch (global expert
-    capacity and load-balance loss; ``make_sharded_value_and_grad``, as
-    is ``batch_over_model``)."""
+    capacity and load-balance loss), and a config ``tp_covers`` on a
+    "model" axis that does not carry the batch the tensor-parallel step
+    (``make_sharded_value_and_grad``, as is ``batch_over_model``)."""
     if mesh.size == 1:
         return make_train_step(cfg, opt_cfg)
     vag = make_sharded_value_and_grad(cfg, mesh, batch_over_model)

@@ -326,6 +326,9 @@ def test_cell_json_has_the_references_keys(tmp_path):
     assert {"flops", "bytes"} <= set(r["cost"])
     assert COLL_KEYS <= set(r["collectives"])
     assert r["chips"] == 8 and r["fits_hbm"] is True
+    assert r["reduced"]["n_layers"] == [ARCHS["smollm-360m"].n_layers,
+                                        reduced(ARCHS["smollm-360m"]).n_layers]
+    assert r["reduced"]["shape"][1] == ["train_4k", "train", 32, 8]
     path = tmp_path / "single" / "smollm-360m__train_4k.json"
     assert json.loads(path.read_text()) == json.loads(json.dumps(r))
     # the unrolled loops count every layer: the shallow twins extrapolate
@@ -343,6 +346,7 @@ def test_long_500k_is_skipped_for_full_attention_archs(name, tmp_path):
         return
     r = dryrun.run_cell(name, "long_500k", "single", str(tmp_path))
     assert r["ok"] and r["skipped"] and "full-attention" in r["reason"]
+    assert "reduced" not in r
 
 
 def test_skip_existing_resumes(tmp_path):

@@ -800,6 +800,18 @@ def test_launch_train_refuses_a_model_axis(tmp_path, capsys):
     assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
 
 
+def test_launch_train_takes_a_config_cut_in_depth(tmp_path, capsys):
+    """``cfg`` replaces ``--arch``'s config: smollm-360m's reduced config
+    cut to one block trains a one-block model."""
+    cfg = reduced(ARCHS["smollm-360m"]).replace(n_layers=1)
+    argv = ["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path)]
+    runner, _ = launch_train.make_runner(argv, cfg)
+    assert {v.shape[0] for v in leaves(runner.params["blocks"])} == {1}
+    out = launch_train.main(argv, cfg)
+    assert out["final_step"] == 2 and np.isfinite(out["last_loss"])
+
+
 def test_launch_serve_cli():
     out = launch_serve.main(["--reduced", "--device", "cpu", "--requests",
                              "5", "--prompt-len", "12", "--max-new", "4"])

@@ -18,7 +18,8 @@ The same bars against the reference's sharded (GSPMD) step of
 8-device subprocess). Also: MoE on (1, 8) runs and matches (MoE on more
 than one batch shard is ``tests/test_torch_train_moe_sharded.py``'s); a
 dense config's sharded gradients are the row-major sum of its batch
-shards' own, bit for bit; a mesh of one shard is the one-device step;
+shards' own tensor-parallel gradients, bit for bit (the TP step itself is
+``tests/test_torch_tp.py``'s); a mesh of one shard is the one-device step;
 ``python -m repro_torch.launch.train --reduced --device cpu --model-axis 2
 --steps 3`` runs; a checkpoint of a sharded run restores into the
 reference's ``checkpoint.restore`` and a reference checkpoint into sharded
@@ -45,6 +46,7 @@ from repro.train import optimizer as ref_opt
 
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.distributed import Mesh
+from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch import train as launch_train
 from repro_torch.models import init_params
@@ -299,10 +301,12 @@ def test_sharded_step_matches_the_reference_sharded_step(ref):
 @pytest.mark.parametrize("name,tag", [("smollm-360m", "4x2"),
                                       ("mistral-nemo-12b", "2x2x2")])
 def test_dense_sharded_grads_are_the_per_shard_sum(name, tag):
-    """A dense config's sharded loss and gradients: each batch shard's
-    ``value_and_grad`` on its rows with the global counts, summed in
-    row-major order, bit for bit (MoE's global dispatch leaves this path
-    alone)."""
+    """A dense config's sharded loss and gradients, which these layouts run
+    tensor-parallel: each batch shard's TP gradient (its row's
+    ``row_value_and_grad`` on its rows with the global counts; a leaf split
+    over "model" put together from the row's pieces, another summed over
+    the row in order) summed over the batch shards in row-major order, bit
+    for bit (MoE's global dispatch leaves this path alone)."""
     cfg = reduced(ARCHS[name])
     mesh = _mesh(tag)
     params = init_params(cfg, device=CPU, seed=0)
@@ -310,17 +314,29 @@ def test_dense_sharded_grads_are_the_per_shard_sum(name, tag):
     ps, _ = shard_train_state(params, opt.init(params), mesh)
     (total, parts), grads = make_sharded_value_and_grad(cfg, mesh)(ps, b)
     n = int(np.prod(MESHES[tag][0][:-1]))
+    M = MESHES[tag][0][-1]
     rows = b["tokens"].shape[0] // n
     n_tok = torch.tensor(float(b["labels"].numel()))
-    loss_fn = tstep._global_loss_fn(cfg, n_tok, n_tok)
-    per = [value_and_grad(loss_fn, params,
-                          {k: v[i * rows:(i + 1) * rows]
-                           for k, v in b.items()}) for i in range(n)]
-    want_total = tstep._psum_list([t for (t, _), _ in per])
+    loss_fn = tstep._global_loss_fn(cfg, n_tok, n_tok, tstep._tp_terms(cfg))
+    row = (torch.device(CPU),) * M
+    totals, per = [], []
+    for i in range(n):
+        part = {k: v[i * rows:(i + 1) * rows] for k, v in b.items()}
+        with mesh_lib.tensor_parallel(row):
+            (t, _), g = tstep.row_value_and_grad(
+                loss_fn, tstep.row_pieces(ps, row), [part] * M)
+        totals.append(t)
+
+        def whole(p, *gs):
+            dim = sh.split_dim(p.spec, "model")
+            return (tstep._psum_list(gs) if dim is None
+                    else torch.cat(gs, dim=dim))
+
+        per.append(tree_map(whole, ps, *g))
+    want_total = tstep._psum_list(totals)
     assert total.numpy().tobytes() == want_total.numpy().tobytes()
     assert float(parts["aux"]) == 0.0
-    want = _flat(tree_map(lambda *gs: tstep._psum_list(gs),
-                          *[g for _, g in per]))
+    want = _flat(tree_map(lambda *gs: tstep._psum_list(gs), *per))
     for k, v in _flat(grads).items():
         assert v.tobytes() == want[k].tobytes(), k
 
