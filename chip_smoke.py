@@ -2620,17 +2620,21 @@ def moe_sharded_training() -> dict:
     layers (the first dense layer and one MoE layer), fp32 compute, one
     (4, 512) batch of ``SyntheticLM``: ``make_sharded_train_step`` on a
     (2, 2) ("data", "model") mesh on the card (two batch shards, the
-    reference's global expert capacity and load-balance loss) against
+    reference's global expert capacity and load-balance loss;
+    tensor-parallel: 32 experts and 8 MLA heads a position) against
     ``make_train_step`` from the same weights. The one-device step runs
     first and its state is freed before the sharded one's is made. Each
     path: one warm-up step, then one step timed by CUDA events from the
     same state; the step-1 loss, grad norm and parameters compared, the MoE
     layer's routing (expert ids, keep masks, slots) compared exactly, its
     drops counted; a control with each batch shard's capacity sized and
-    counted from its own tokens; the peak device memory of each path."""
+    counted from its own tokens; the peak device memory of each path; what
+    ran: a reduce-scatter call (only the tensor-parallel step makes one)
+    and the splits ``moe.tp_splits`` and ``mla.tp_splits`` counted."""
     from repro_torch.configs import ARCHS
+    from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding as sh
-    from repro_torch.models import forward, init_params, moe
+    from repro_torch.models import forward, init_params, mla, moe
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import (make_sharded_train_step,
@@ -2653,17 +2657,18 @@ def moe_sharded_training() -> dict:
         step(p, s, b)                               # warm-up, dropped
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        with moe.recording_routes() as routes:
+        with moe.recording_routes() as routes, \
+                collectives.counting() as count:
             start.record()
             out = step(p, s, b)
             end.record()
         torch.cuda.synchronize()
-        return out[0], out[2], start.elapsed_time(end), routes
+        return out[0], out[2], start.elapsed_time(end), routes, count.calls
 
     st = opt.init(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    p1, m1, ms1, r1 = timed(make_train_step(cfg, ocfg), params, st)
+    p1, m1, ms1, r1, _ = timed(make_train_step(cfg, ocfg), params, st)
     peak1 = torch.cuda.max_memory_allocated()
     del st
     # the control: each batch shard sizes and counts its own capacity
@@ -2675,8 +2680,12 @@ def moe_sharded_training() -> dict:
     del params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    p2, m2, ms2, r2 = timed(make_sharded_train_step(cfg, ocfg, mesh), ps, ss)
+    moe.tp_splits.clear()
+    mla.tp_splits.clear()
+    p2, m2, ms2, r2, calls = timed(make_sharded_train_step(cfg, ocfg, mesh),
+                                   ps, ss)
     peak2 = torch.cuda.max_memory_allocated()
+    ran = moe_tp_route(calls)
     del ps, ss
     lr1 = float(opt.lr_at(ocfg, 1))
     dp = max(float((sh.gather(a) - w).abs().max())
@@ -2700,12 +2709,16 @@ def moe_sharded_training() -> dict:
     ok = (loss_rel <= SHARDED_LOSS_RTOL and gn_rel <= SHARDED_GNORM_RTOL
           and dp <= SHARDED_PARAM_ATOL_LR * lr1 and all(same.values())
           and dropped["sharded"] == dropped["one_device"]
+          and ran["tensor_parallel"]
+          and set(ran["moe_splits"]) == {"experts over the row"}
+          and set(ran["mla_splits"]) == {"whole heads"}
           and all(np.isfinite(float(m[k])) for m in (m1, m2)
                   for k in ("loss", "aux", "grad_norm")))
     return {"arch": full.name, "compute_dtype": "float32",
             "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
                         "why": "depth only: the first (dense) layer and "
                                "one MoE layer; widths as published"},
+            **ran, "collective_calls_sharded_step": calls,
             "n_experts": cfg.n_experts, "top_k": cfg.top_k,
             "n_shared_experts": cfg.n_shared_experts,
             "d_model": cfg.d_model, "d_ff_expert": cfg.d_ff_expert,
@@ -2735,6 +2748,195 @@ def moe_sharded_training() -> dict:
             "peak_device_bytes_one_device": peak1,
             "peak_device_bytes_sharded": peak2,
             "ok": ok, "seconds": time.perf_counter() - t0}
+
+
+def moe_tp_route(calls) -> dict:
+    """Whether the sharded step just run was tensor-parallel, from what
+    ran: a reduce-scatter call (``collective_calls``; only the
+    tensor-parallel step makes one) and the splits that
+    ``models.moe.moe_apply_tp`` / ``moe_apply_a2a_tp`` and
+    ``models.mla.mla_apply_tp`` counted (``tp_splits``)."""
+    from repro_torch.models import mla, moe
+
+    splits = dict(moe.tp_splits)
+    return {"tensor_parallel": calls.get("reduce-scatter", 0) > 0
+            and bool(splits), "moe_splits": splits,
+            "mla_splits": dict(mla.tp_splits)}
+
+
+def strip_model(specs):
+    """A spec tree with "model" taken out: the whole-leaf layout."""
+    from repro_torch.distributed import sharding as sh
+
+    if isinstance(specs, dict):
+        return {k: strip_model(v) for k, v in specs.items()}
+    return sh.P(*(None if e == sh.TP else e for e in specs))
+
+
+def one_moe_step(step, p, s, b, hint=None) -> dict:
+    """One step of ``step`` from ``(p, s)`` on ``b`` (under ``hint_mesh``
+    when given): parameters after it gathered whole, metrics, routes per
+    MoE layer joined over the batch shards, collective calls, ms by CUDA
+    events."""
+    import contextlib
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+
+    ctx = sh.hint_mesh(hint) if hint is not None else \
+        contextlib.nullcontext()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with ctx, moe.recording_routes() as routes, \
+            collectives.counting() as count:
+        start.record()
+        new_p, _, m = step(p, s, b)
+        end.record()
+    torch.cuda.synchronize()
+    return {"params": {k: sh.gather(a) if isinstance(a, sh.Sharded) else a
+                       for k, a in sorted_paths(new_p)},
+            "metrics": {k: float(v) for k, v in m.items()},
+            "routes": routes, "calls": count.calls,
+            "ms": start.elapsed_time(end)}
+
+
+def moe_steps_agree(got: dict, want: dict, n_shards: tuple, lr1: float
+                    ) -> dict:
+    """Step-1 loss, grad norm and parameters of two steps under (d)'s bars,
+    the routing equal exactly and the drops counted; ``n_shards`` the two
+    steps' batch shards (how their routes are split)."""
+    loss_rel = abs(got["metrics"]["loss"] - want["metrics"]["loss"]) / abs(
+        want["metrics"]["loss"])
+    gn_rel = abs(got["metrics"]["grad_norm"] - want["metrics"]["grad_norm"]
+                 ) / want["metrics"]["grad_norm"]
+    dp = max(float((got["params"][k] - w).abs().max())
+             for k, w in want["params"].items())
+    r_got, r_want = (routes_by_layer(x["routes"], n)
+                     for x, n in zip((got, want), n_shards))
+    same = all(len(r_got[k]) == len(r_want[k]) > 0 and all(
+        torch.equal(a, w) for a, w in zip(r_got[k], r_want[k]))
+        for k in r_want)
+    dropped = [int((~k).sum()) for k in r_want["keep"]]
+    ok = (loss_rel <= SHARDED_LOSS_RTOL and gn_rel <= SHARDED_GNORM_RTOL
+          and dp <= SHARDED_PARAM_ATOL_LR * lr1 and same
+          and all(np.isfinite(got["metrics"][k]) for k in
+                  ("loss", "aux", "grad_norm")))
+    return {"loss": [got["metrics"]["loss"], want["metrics"]["loss"]],
+            "step1_loss_rel_err": loss_rel, "step1_grad_norm_rel_err": gn_rel,
+            "params_step1_max_abs_over_lr": dp / lr1, "routing_equal": same,
+            "dropped_slots": dropped, "ms": [got["ms"], want["ms"]],
+            "ok": ok}
+
+
+# (h): reduced dbrx under the hint mesh, the a2a inside each row, against
+# the whole-leaf step under the same mesh; budget 5 s on the card
+A2A_ROW_BATCH = (8, 64)
+A2A_ROW_MESH = (2, 2)
+# the whole-leaf MoE step on a mesh without "model"; budget 5 s
+WHOLE_LEAF_MESH = (4,)
+
+
+def a2a_row_training() -> dict:
+    """(h) reduced ``dbrx-132b`` (fp32, 4 experts top-2, d_model 64) on a
+    (2, 2) ("data", "model") mesh on the card under ``hint_mesh``: the
+    tensor-parallel step, whose MoE layers run the all-to-all inside each
+    row of positions on their own experts (``moe_apply_a2a_tp``), against
+    the port's whole-leaf step under the same mesh (the leaves placed
+    without "model": ``_moe_global_step``, whose a2a reads slices of the
+    whole weights), at the config's capacity and at 0.5: one step each
+    from the same state, compared under (d)'s bars, the routing equal
+    exactly, the drops counted, what ran checked."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import init_params, moe
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              shard_train_state)
+
+    t0 = time.perf_counter()
+    mesh = card_mesh(A2A_ROW_MESH, ("data", "model"))
+    ocfg = OptimizerConfig(lr=3e-3, warmup_steps=10, total_steps=20)
+    lr1 = float(opt.lr_at(ocfg, 1))
+    out, ok = {}, True
+    for cap in (None, 0.5):
+        cfg = reduced(ARCHS["dbrx-132b"])
+        if cap is not None:
+            cfg = cfg.replace(capacity_factor=cap)
+        params = init_params(cfg, device="cuda", seed=0)
+        b = {k: v.cuda() for k, v in train_batch(
+            cfg, seed=0, batch=A2A_ROW_BATCH[0],
+            seq=A2A_ROW_BATCH[1]).items()}
+        specs = sh.param_specs(params, mesh)
+        step = make_sharded_train_step(cfg, ocfg, mesh)
+        runs = {}
+        for tag, sp in (("whole_leaf", strip_model(specs)), ("tp", specs)):
+            moe.tp_splits.clear()
+            ps, ss = shard_train_state(params, opt.init(params), mesh, sp)
+            one_moe_step(step, ps, ss, b, hint=mesh)   # warm-up, dropped
+            runs[tag] = one_moe_step(step, ps, ss, b, hint=mesh)
+            runs[tag].update(moe_tp_route(runs[tag]["calls"]))
+        n = A2A_ROW_MESH[0]
+        agree = moe_steps_agree(runs["tp"], runs["whole_leaf"], (n, n), lr1)
+        good = (agree["ok"] and runs["tp"]["tensor_parallel"]
+                and set(runs["tp"]["moe_splits"]) == {"a2a in the row"}
+                and not runs["whole_leaf"]["tensor_parallel"]
+                and (cap is None or sum(agree["dropped_slots"]) > 0))
+        out[str(cfg.capacity_factor)] = {
+            **agree, "ok": good,
+            "tp": {k: runs["tp"][k] for k in ("tensor_parallel",
+                                              "moe_splits", "calls")},
+            "whole_leaf": {k: runs["whole_leaf"][k] for k in (
+                "tensor_parallel", "calls")}}
+        ok = ok and good
+    return {"arch": "dbrx-132b (reduced)", "batch": list(A2A_ROW_BATCH),
+            "mesh": mesh.shape, "capacities": out,
+            "bars": {"loss_rtol": SHARDED_LOSS_RTOL,
+                     "grad_norm_rtol": SHARDED_GNORM_RTOL,
+                     "params_atol_over_lr": SHARDED_PARAM_ATOL_LR,
+                     "routing": "equal"},
+            "ok": ok, "seconds": time.perf_counter() - t0}
+
+
+def whole_leaf_moe_training() -> dict:
+    """The whole-leaf MoE step (``_moe_global_step``) kept on the card:
+    reduced ``deepseek-v2-lite-16b`` (fp32) on a (4,) ("data",) mesh, no
+    "model" axis, so every batch shard gathers the leaves whole, against
+    ``make_train_step`` from the same weights: one step each, (d)'s bars,
+    routing equal exactly, drops counted, no reduce-scatter call."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import init_params
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              shard_train_state)
+
+    t0 = time.perf_counter()
+    cfg = reduced(ARCHS["deepseek-v2-lite-16b"]).replace(capacity_factor=0.5)
+    ocfg = OptimizerConfig(lr=3e-3, warmup_steps=10, total_steps=20)
+    mesh = card_mesh(WHOLE_LEAF_MESH, ("data",))
+    params = init_params(cfg, device="cuda", seed=0)
+    b = {k: v.cuda() for k, v in train_batch(
+        cfg, seed=0, batch=A2A_ROW_BATCH[0], seq=A2A_ROW_BATCH[1]).items()}
+    runs = {}
+    for tag, step, (p, s) in (
+            ("one_device", make_train_step(cfg, ocfg),
+             (params, opt.init(params))),
+            ("sharded", make_sharded_train_step(cfg, ocfg, mesh),
+             shard_train_state(params, opt.init(params), mesh))):
+        one_moe_step(step, p, s, b)                     # warm-up, dropped
+        runs[tag] = one_moe_step(step, p, s, b)
+    agree = moe_steps_agree(runs["sharded"], runs["one_device"],
+                            (WHOLE_LEAF_MESH[0], 1),
+                            float(opt.lr_at(ocfg, 1)))
+    calls = runs["sharded"]["calls"]
+    ok = (agree["ok"] and calls.get("reduce-scatter", 0) == 0
+          and sum(agree["dropped_slots"]) > 0)
+    return {"arch": cfg.name, "capacity_factor": cfg.capacity_factor,
+            "batch": list(A2A_ROW_BATCH), "mesh": mesh.shape, **agree,
+            "collective_calls_sharded_step": calls, "ok": ok,
+            "seconds": time.perf_counter() - t0}
 
 
 def measured_peaks() -> dict:
@@ -2807,8 +3009,11 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
     on (2, 2) (tensor-parallel, through a head), (g) of mistral-nemo-12b at
     its widths, 2 layers, on (2, 2) (tensor-parallel, whole heads), (f) MoE
     training of deepseek-v2-lite-16b (2 layers) on (2, 2)
-    with the global expert capacity, (e) the roofline on the card's
-    measured peaks. One JSON line each."""
+    with the global expert capacity (tensor-parallel: experts and MLA
+    heads over "model"), (h) reduced dbrx's a2a inside each row under the
+    hint mesh against the whole-leaf step, the whole-leaf MoE step on a
+    mesh without "model", (e) the roofline on the card's measured peaks.
+    One JSON line each."""
     t0 = time.perf_counter()
     a = specs_at_full_size()
     emit("lm_sharded.specs", **a)
@@ -2822,6 +3027,11 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
     emit("lm_sharded.tp_train", nvidia_smi=dev["nvidia_smi"], **g)
     f = moe_sharded_training()
     emit("lm_sharded.moe_train", nvidia_smi=dev["nvidia_smi"], **f)
+    h = a2a_row_training()
+    emit("lm_sharded.a2a_row_train", nvidia_smi=dev["nvidia_smi"], **h)
+    w = whole_leaf_moe_training()
+    emit("lm_sharded.moe_whole_leaf_train", nvidia_smi=dev["nvidia_smi"],
+         **w)
     t_e = time.perf_counter()
     peaks = measured_peaks()
     e = roofline_check(peaks, lm_train_ms, d["ms_per_step_one_device"])
@@ -2831,6 +3041,7 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
     failed = [name for name, ok in (
         ("specs", a["ok"]), ("a2a", b["ok"]), ("grad_compress", c["ok"]),
         ("train", d["ok"]), ("tp_train", g["ok"]), ("moe_train", f["ok"]),
+        ("a2a_row_train", h["ok"]), ("moe_whole_leaf_train", w["ok"]),
         ("roofline", all(r["ok"] for r in e.values())))
         if not ok]
     if failed:

@@ -41,16 +41,21 @@ target, and its backward a copy back. ``tests/test_torch_dryrun.py`` holds
 this to the count with each position on its own ``meta:k`` device.
 
 What is tensor-parallel and what is not (ROADMAP §C.7): the train step of
-a config of attention without MLA and a swiglu or gelu MLP (the ``tp``
-configs, and any such config whose batch is not split over "model") runs
-each batch shard over its row of positions, each position computing with
-its "model" pieces, as a GSPMD compile partitions it; an ``fsdp`` config
-splits its batch over "model" and gathers whole leaves per batch shard, as
-the reference's layout does. The MoE, MLA, SSM and RWKV configs' train
-steps, and every config's sharded prefill and decode, still run each batch
-shard at the position of model index 0 with whole leaves gathered there,
-so their per-position peaks are far above a GSPMD compile's. The cells
-report the port's own figure. A moved tensor's gradient counts as
+every ``tp`` config (attention, MLA or not, with a swiglu, gelu or MoE
+channel; any such config whose batch is not split over "model") runs each
+batch shard over its row of positions, each position computing with its
+"model" pieces, as a GSPMD compile partitions it: Megatron's column / row
+splits, MLA's heads, ``E/M`` whole experts a position (dbrx's all-to-all
+inside the row under the hint mesh), the embedding, head and
+cross-entropy by vocabulary. A position still gathers all its pieces over
+"data" before the forward and holds their gradients until the
+reduce-scatter, where GSPMD gathers layer by layer (ROADMAP §C.7). An
+``fsdp`` config (zamba2, rwkv6, smollm, starcoder2) splits its batch over
+"model" and gathers whole leaves per batch shard, as the reference's
+layout does. Every config's sharded prefill and decode still run each
+batch shard at the position of model index 0 with whole leaves gathered
+there, so their per-position peaks are far above a GSPMD compile's. The
+cells report the port's own figure. A moved tensor's gradient counts as
 traffic too (``collectives``). No number here was measured on a card.
 """
 from __future__ import annotations

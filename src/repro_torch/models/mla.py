@@ -7,11 +7,14 @@ per token instead of 2·H·dh) and no per-step expansion of the cache occurs.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import NamedTuple, Tuple
 
 import torch
 
+from ..distributed import collectives
+from ..distributed import mesh as _mesh
 from . import layers
 from .attention import NEG, decode_mask, write_rows
 
@@ -46,14 +49,20 @@ def _batched(positions):
     return positions if positions.ndim == 2 else positions[None]
 
 
-def _project_q(cfg, p, x, positions):
-    """positions: (S,) shared across the batch, or (B, S) per-row."""
-    B, S, _ = x.shape
+def _split_q(cfg, q, positions):
+    """Projected queries (B, S, H (dn + dr)) -> (q_nope, roped q_rope);
+    positions: (S,) shared across the batch, or (B, S) per-row."""
+    B, S, _ = q.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dims, cfg.qk_rope_dims
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, dn + dr)
+    q = q.reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, _batched(positions), cfg.rope_theta)
     return q_nope, q_rope
+
+
+def _project_q(cfg, p, x, positions):
+    """positions: (S,) shared across the batch, or (B, S) per-row."""
+    return _split_q(cfg, x @ p["wq"].to(x.dtype), positions)
 
 
 def latent_kv(cfg, p, x, positions):
@@ -67,16 +76,17 @@ def latent_kv(cfg, p, x, positions):
     return c_kv, k_rope
 
 
-def mla_apply(cfg, p, x, positions, causal: bool = True) -> torch.Tensor:
-    """Naive (expanded) MLA for train / prefill."""
-    dt = x.dtype
-    B, S, D = x.shape
+def _attend(cfg, q, k_nope, v, k_rope, positions, causal: bool):
+    """The expanded attention of projected queries (B, S, H (dn + dr)),
+    keys (B, S, H dn), values (B, S, H dv) and the shared roped key (B, S,
+    dr), ``cfg``'s ``H``; returns (B, S, H dv) before ``wo``."""
+    dt = q.dtype
+    B, S = q.shape[:2]
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dims, cfg.qk_rope_dims, cfg.v_head_dim
-    q_nope, q_rope = _project_q(cfg, p, x, positions)
-    c_kv, k_rope = latent_kv(cfg, p, x, positions)
-    k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, dn)
-    v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, dv)
+    q_nope, q_rope = _split_q(cfg, q, positions)
+    k_nope = k_nope.reshape(B, S, H, dn)
+    v = v.reshape(B, S, H, dv)
     scale = 1.0 / math.sqrt(dn + dr)
     s = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
          + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)) * scale
@@ -86,7 +96,82 @@ def mla_apply(cfg, p, x, positions, causal: bool = True) -> torch.Tensor:
         s = torch.where(mask[None, None], s, NEG)
     probs = torch.softmax(s, -1).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out.reshape(B, S, H * dv) @ p["wo"].to(dt)
+    return out.reshape(B, S, H * dv)
+
+
+def mla_apply(cfg, p, x, positions, causal: bool = True) -> torch.Tensor:
+    """Naive (expanded) MLA for train / prefill."""
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    c_kv, k_rope = latent_kv(cfg, p, x, positions)
+    out = _attend(cfg, q, c_kv @ p["w_uk"].to(dt), c_kv @ p["w_uv"].to(dt),
+                  k_rope, positions, causal)
+    return out @ p["wo"].to(dt)
+
+
+# the splits ``mla_apply_tp`` took, one count a call: "whole layer",
+# "whole heads" or "through a head" (read and cleared by callers that must
+# know which ran)
+tp_splits: collections.Counter = collections.Counter()
+
+
+def mla_apply_tp(cfg, ps, xs, positions, causal: bool = True):
+    """``mla_apply`` over the row of ``distributed.mesh.tp_row()``: one
+    parameter tree, input and position vector per position, one output per
+    position.
+
+    ``wq`` is column-parallel, ``w_uk`` / ``w_uv`` column-split by heads and
+    ``wo`` row-parallel, while ``w_dkv``, ``w_krope`` and ``kv_norm`` are
+    whole: each position computes the whole latent ``c_kv`` and ``k_rope``.
+    Where the splits give every position whole heads, each computes its
+    heads' queries, keys, values and scores, applies its rows of ``wo``,
+    and ``all_reduce`` adds the rows. Where a split cuts through a head,
+    the projections' columns are gathered whole at every position
+    (``all_gather_row``), the attention computed there whole, and only
+    ``wo``'s row split divides the work. Leaves left whole give every
+    position the whole layer. Each call counts its split in
+    ``tp_splits``."""
+    row = _mesh.tp_row()
+    M = len(row)
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dims, cfg.qk_rope_dims, cfg.v_head_dim
+    width = {"wq": H * (dn + dr), "w_uk": H * dn, "w_uv": H * dv}
+    split = {k: ps[0][k].shape[-1] != w for k, w in width.items()}
+    wo_split = ps[0]["wo"].shape[0] != H * dv
+    if not (any(split.values()) or wo_split):
+        tp_splits["whole layer"] += 1
+        return _mesh.each(lambda p, x, pos: mla_apply(cfg, p, x, pos, causal),
+                          ps, xs, positions)
+    if H % M == 0 and all(split.values()) and wo_split:
+        tp_splits["whole heads"] += 1
+        local = cfg.replace(n_heads=H // M, n_kv_heads=H // M)
+        outs = _mesh.each(
+            lambda p, x, pos: mla_apply(local, p, x, pos, causal),
+            ps, xs, positions)
+        return collectives.all_reduce(outs, row)
+    tp_splits["through a head"] += 1
+
+    def project(name, inputs):
+        """The projection's columns, gathered whole where split."""
+        cols = _mesh.each(lambda p, x: x @ p[name].to(x.dtype), ps, inputs)
+        return collectives.all_gather_row(cols, -1, row) if split[name] \
+            else cols
+
+    latents = _mesh.each(lambda p, x, pos: latent_kv(cfg, p, x, pos),
+                         ps, xs, positions)
+    c_kv = [c for c, _ in latents]
+    q, k, v = (project("wq", xs), project("w_uk", c_kv),
+               project("w_uv", c_kv))
+    n = ps[0]["wo"].shape[0]
+
+    def rows_of_wo(j, p, q, k, v, lat, pos):
+        o = _attend(cfg, q, k, v, lat[1], pos, causal)
+        if wo_split:
+            o = o.narrow(-1, j * n, n)
+        return o @ p["wo"].to(o.dtype)
+
+    outs = _mesh.each(rows_of_wo, range(M), ps, q, k, v, latents, positions)
+    return collectives.all_reduce(outs, row) if wo_split else outs
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype,

@@ -22,13 +22,13 @@ Families:
   vlm (llava)        decoder over [vision stub embeds ; text embeds]
 
 ``forward_tp`` is ``forward`` under ``distributed.mesh.tensor_parallel``
-for the configs ``tp_covers`` (attention without MLA, a swiglu or gelu
-MLP): one parameter tree per position of the row, each holding that
-position's "model" pieces (Megatron's column / row splits; the embedding,
-the head and so the logits split by vocabulary), the residual stream
-replicated at every position, the row's sums through
-``distributed.collectives``. Each block, remat included, runs the whole
-row in lockstep (``mesh.each``).
+for the configs ``tp_covers`` (attention, MLA or not; a swiglu, gelu or
+MoE channel): one parameter tree per position of the row, each holding
+that position's "model" pieces (Megatron's column / row splits, MLA's
+heads, ``E/M`` whole experts; the embedding, the head and so the logits
+split by vocabulary), the residual stream replicated at every position,
+the row's sums through ``distributed.collectives``. Each block, remat
+included, runs the whole row in lockstep (``mesh.each``).
 """
 from __future__ import annotations
 
@@ -308,11 +308,11 @@ def forward(
 
 # ============================================================ on a TP row
 def tp_covers(cfg) -> bool:
-    """Does ``forward_tp`` run this config? Attention without MLA and a
-    swiglu or gelu MLP, no shared attention block (whisper's encoder and
-    cross-attention and llava's vision prefix included)."""
-    return (cfg.mixer == "attn" and not cfg.mla
-            and cfg.mlp in ("swiglu", "gelu")
+    """Does ``forward_tp`` run this config? Attention (MLA or not) and a
+    swiglu, gelu or MoE channel, no shared attention block (whisper's
+    encoder and cross-attention and llava's vision prefix included)."""
+    return (cfg.mixer == "attn"
+            and cfg.mlp in ("swiglu", "gelu", "moe")
             and cfg.shared_attn_every == 0)
 
 
@@ -328,20 +328,48 @@ def _layer_tp(trees, i: int):
     return [layer(t, i) for t in trees]
 
 
-def _block_tp(cfg, bps, xs, positions, enc_outs=None):
-    """``_block_apply`` over the row (the covered configs have no aux)."""
-    xs = _add(xs, attention.attn_apply_tp(
-        cfg, [b["attn"] for b in bps],
-        _norm_tp(cfg, xs, [b["norm1"] for b in bps]), positions,
-        use_rope=cfg.use_rope))
+def _apply_mixer_tp(cfg, bps, xs, positions):
+    """``_apply_mixer`` over the row."""
+    if cfg.mla:
+        return mla.mla_apply_tp(cfg, [b["mla"] for b in bps], xs, positions)
+    return attention.attn_apply_tp(cfg, [b["attn"] for b in bps], xs,
+                                   positions, use_rope=cfg.use_rope)
+
+
+def apply_channel_tp(cfg, ps, bps, xs, layer_idx: int):
+    """``apply_channel`` over the row: ``ps`` the positions' parameter
+    trees, ``bps`` their layer's; returns (one output per position, aux on
+    the row's first position)."""
+    zero = torch.zeros((), dtype=_F32, device=xs[0].device)
+    if cfg.mlp == "moe":
+        moes = [b["moe"] for b in bps]
+        if cfg.first_dense_layers > 0 and "dense_mlp" in ps[0]:
+            if layer_idx < cfg.first_dense_layers:
+                return layers.mlp_apply_tp(
+                    cfg, _layer_tp([p["dense_mlp"] for p in ps], layer_idx),
+                    xs), zero
+            return moe.moe_apply_tp(cfg, moes, xs)
+        if cfg.moe_impl == "a2a":
+            mesh = _sh.active_mesh()
+            if mesh is not None:
+                return moe.moe_apply_a2a_tp(cfg, moes, xs, mesh)
+        return moe.moe_apply_tp(cfg, moes, xs)
+    return layers.mlp_apply_tp(cfg, [b["mlp"] for b in bps], xs), zero
+
+
+def _block_tp(cfg, ps, bps, xs, positions, layer_idx, enc_outs=None):
+    """``_block_apply`` over the row; returns (xs, aux)."""
+    xs = _add(xs, _apply_mixer_tp(
+        cfg, bps, _norm_tp(cfg, xs, [b["norm1"] for b in bps]), positions))
     if enc_outs is not None:
         xs = _add(xs, attention.attn_apply_tp(
             cfg, [b["xattn"] for b in bps],
             _norm_tp(cfg, xs, [b["norm_x"] for b in bps]), positions,
             causal=False, kv_source=enc_outs, use_rope=False))
-    return _add(xs, layers.mlp_apply_tp(
-        cfg, [b["mlp"] for b in bps],
-        _norm_tp(cfg, xs, [b["norm2"] for b in bps])))
+    hs, aux = apply_channel_tp(
+        cfg, ps, bps, _norm_tp(cfg, xs, [b["norm2"] for b in bps]),
+        layer_idx)
+    return _add(xs, hs), aux
 
 
 def _enc_block_tp(enc_cfg, bps, xs, positions):
@@ -407,8 +435,8 @@ def forward_tp(cfg, ps, tokens, vision_embeds=None, audio_frames=None):
     """``forward`` over the row of ``mesh.tp_row()``: ``ps`` one parameter
     tree per position, the inputs one tensor per position (the batch
     shard's rows, replicated over the row). Returns each position's fp32
-    logits (B, S_total, its range of the vocabulary) and the aux (zero;
-    on the row's first position)."""
+    logits (B, S_total, its range of the vocabulary) and the aux (the MoE
+    layers', as ``forward``'s; on the row's first position)."""
     dt = layers.dtype_of(cfg.compute_dtype)
     xs = embed_tp(cfg, ps, tokens, vision_embeds)
     positions = _positions_tp(xs)
@@ -422,9 +450,10 @@ def forward_tp(cfg, ps, tokens, vision_embeds=None, audio_frames=None):
             x.shape[1], cfg.d_model, x.device).to(dt)[None], xs)
     blocks = [p["blocks"] for p in ps]
     remat = _rematted(cfg)
-    for i in range(next(leaves(blocks[0])).shape[0]):
-        xs = _run_block(remat, _block_tp, cfg, _layer_tp(blocks, i), xs,
-                        positions, enc_outs)
-    xs = _norm_tp(cfg, xs, [p["final_norm"] for p in ps])
     aux = torch.zeros((), dtype=_F32, device=xs[0].device)
+    for i in range(next(leaves(blocks[0])).shape[0]):
+        xs, a = _run_block(remat, _block_tp, cfg, ps, _layer_tp(blocks, i),
+                           xs, positions, i, enc_outs)
+        aux = aux + a
+    xs = _norm_tp(cfg, xs, [p["final_norm"] for p in ps])
     return layers.logits_from_hidden_tp(cfg, ps, xs), aux

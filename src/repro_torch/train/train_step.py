@@ -17,7 +17,8 @@ the batch is not split over "model" and a leaf's spec splits "model", a
 config that ``models.transformer.tp_covers`` runs tensor-parallel inside
 each batch shard, as GSPMD partitions the reference's step: each position
 of the shard's row over "model" computes with its own pieces, gathered
-over the batch axes only; the embedding, the head, the logits and the
+over the batch axes only (Megatron's column / row splits, MLA's heads,
+``E/M`` whole experts); the embedding, the head, the logits and the
 cross-entropy are split by vocabulary.
 
 The reference's ``remat`` (``jax.checkpoint`` per layer) is the port's
@@ -210,24 +211,40 @@ def _moe_global_step(cfg, loss_fn, params, batch, devs, rows):
                         for name, v in batch.items()}
                 here = tree_map(lambda p: _sh.gather(p, dev).detach()
                                 .requires_grad_(True), params)
-                d = moe.Dispatch(batch["labels"].numel(),
-                                 disps[-1].carried(dev) if disps else (),
-                                 shard=k)
+                d = _next_dispatch(batch, disps, dev, k)
                 with moe.global_dispatch(d):
                     total, parts = loss_fn(here, part)
             totals.append(total)
             ces.append(parts["ce"])
             heres.append(here)
             disps.append(d)
-        aux = moe.global_aux(cfg, disps, devs[0])
-        total = _psum_list(totals) + aux
-        flat = torch.autograd.grad(
-            total, [t for h in heres for t in leaves(h)], allow_unused=True,
-            materialize_grads=True)
-    it = iter(flat)
-    grads = [tree_map(lambda _: next(it), params) for _ in heres]
+        total, aux, grads = _global_backward(cfg, totals, disps, heres,
+                                             params, devs[0])
     parts = {"ce": _psum_list(ces).detach(), "aux": aux.detach()}
     return (total.detach(), parts), grads
+
+
+def _next_dispatch(batch, disps, device, k: int) -> "moe.Dispatch":
+    """Batch shard ``k``'s ``moe.Dispatch``: the global batch's token
+    count, the slot offsets the earlier shards (``disps``) carried, on
+    ``device``."""
+    return moe.Dispatch(batch["labels"].numel(),
+                        disps[-1].carried(device) if disps else (), shard=k)
+
+
+def _global_backward(cfg, totals, disps, trees, params, device):
+    """The end of a MoE step on the global batch: the global load-balance
+    loss (``moe.global_aux``, on ``device``) added to the shards' summed
+    losses, and one backward through every shard's graph to the leaves of
+    ``trees`` (each of ``params``' structure). Returns ``(total, aux, one
+    gradient tree per tree)``."""
+    aux = moe.global_aux(cfg, disps, device)
+    total = _psum_list(totals) + aux
+    flat = iter(torch.autograd.grad(
+        total, [t for h in trees for t in leaves(h)], allow_unused=True,
+        materialize_grads=True))
+    return total, aux, [tree_map(lambda _: next(flat), params)
+                        for _ in trees]
 
 
 def vocab_parallel_nll(logits, labels):
@@ -314,30 +331,54 @@ def _tp_applies(cfg, mesh, params, batch_over_model: bool) -> bool:
 
 def _tp_step(cfg, loss_fn, params, batch, mesh, axes, rows):
     """``((total, parts), Sharded gradients)`` of the tensor-parallel step:
-    each batch shard's forward and backward over its row of positions
-    (``row_value_and_grad`` in ``tensor_parallel``), its rows of the batch
-    at every position of the row; then every leaf's gradient pieces summed
-    over the batch shards and cut over "data"
-    (``sharding.reduce_scatter_leaf``)."""
+    each batch shard's forward over its row of positions (in
+    ``tensor_parallel``), its rows of the batch at every position of the
+    row; then every leaf's gradient pieces summed over the batch shards
+    and cut over "data" (``sharding.reduce_scatter_leaf``).
+
+    A dense config runs each row's backward before the next row's forward
+    (``row_value_and_grad``). A MoE config computes the reference's
+    function on the global batch, as ``_moe_global_step`` does on whole
+    leaves: each row's forward under its ``moe.Dispatch`` (the global
+    capacity, the slot offsets the earlier rows carried), then the global
+    load-balance loss (``moe.global_aux``), then one backward over every
+    position's pieces; with ``remat`` a block's recompute re-enters its
+    row and its row's dispatch."""
     grid = np.asarray(mesh.devices_of(tuple(axes) + (_sh.TP,)),
                       dtype=object).reshape(-1, mesh.shape[_sh.TP])
     K, M = grid.shape
-    totals, ces, auxs, grads = [], [], [], []
-    for k in range(K):
-        row = tuple(grid[k])
-        with _mesh.at(row[0]), _mesh.tensor_parallel(row):
-            parts = _mesh.each(lambda dev: {
-                name: v.narrow(0, k * rows, rows).to(dev)
-                for name, v in batch.items()}, row)
-            ps = row_pieces(params, row)
-            (total, p), g = row_value_and_grad(loss_fn, ps, parts)
-            del ps
-        totals.append(total)
-        ces.append(p["ce"])
-        auxs.append(p["aux"])
-        grads.extend(g)
-    total = _psum_list(totals)
-    parts = {"ce": _psum_list(ces), "aux": _psum_list(auxs)}
+    disps = [] if cfg.mlp == "moe" else None
+    totals, ces, auxs, grads, held = [], [], [], [], []
+    with torch.enable_grad():
+        for k in range(K):
+            row = tuple(grid[k])
+            with _mesh.at(row[0]), _mesh.tensor_parallel(row):
+                parts = _mesh.each(lambda dev: {
+                    name: v.narrow(0, k * rows, rows).to(dev)
+                    for name, v in batch.items()}, row)
+                ps = row_pieces(params, row)
+                if disps is None:
+                    (total, p), g = row_value_and_grad(loss_fn, ps, parts)
+                    grads.extend(g)
+                else:
+                    ps = [tree_map(lambda a: a.detach().requires_grad_(True),
+                                   t) for t in ps]
+                    d = _next_dispatch(batch, disps, row[0], k)
+                    with moe.global_dispatch(d):
+                        total, p = loss_fn(ps, parts)
+                    disps.append(d)
+                    held.extend(ps)
+                del ps
+            totals.append(total)
+            ces.append(p["ce"])
+            auxs.append(p["aux"])
+        if disps is None:
+            total, aux = _psum_list(totals), _psum_list(auxs)
+        else:
+            total, aux, grads = _global_backward(cfg, totals, disps, held,
+                                                 params, grid[0, 0])
+            del held
+    parts = {"ce": _psum_list(ces).detach(), "aux": aux.detach()}
 
     def leaf(p, *gs):
         arr = np.empty((K, M), dtype=object)
@@ -345,7 +386,7 @@ def _tp_step(cfg, loss_fn, params, batch, mesh, axes, rows):
             arr[i // M, i % M] = g
         return _sh.reduce_scatter_leaf(p, arr)
 
-    return (total, parts), tree_map(leaf, params, *grads)
+    return (total.detach(), parts), tree_map(leaf, params, *grads)
 
 
 def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
@@ -360,21 +401,25 @@ def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
 
     The layout decides the path, as it does for GSPMD. With the batch not
     split over "model", a leaf's spec splitting "model" and a config that
-    ``tp_covers``, each batch shard runs tensor-parallel over its row of
+    ``tp_covers`` (attention, MLA or not, with a swiglu, gelu or MoE
+    channel), each batch shard runs tensor-parallel over its row of
     positions (``_tp_step``): no position gathers a "model"-split leaf
-    whole or holds the whole vocabulary's logits. Otherwise each batch
-    shard's forward and backward run on its device (the position at model
-    index 0) with the ``Sharded`` parameters gathered whole there (ZeRO-3),
-    and the shards' gradients are summed (``psum``) and cut.
+    whole (an expert tensor, an MLA head-split leaf) or holds the whole
+    vocabulary's logits. Otherwise each batch shard's forward and backward
+    run on its device (the position at model index 0) with the
+    ``Sharded`` parameters gathered whole there (ZeRO-3), and the shards'
+    gradients are summed (``psum``) and cut.
 
     A MoE config on more than one batch shard computes the reference's
     GSPMD step, the one-device function on the global batch: expert
     capacity from the global token count, each (token, slot)'s place in
     its expert after the earlier shards' (``moe.global_dispatch``), the
-    load-balance loss from global means. Its shards' forwards run first
-    and one backward follows, so every shard's activations live until
-    then: on separate cards each holds its own shard's, as GSPMD does; on
-    one card holding every shard they add up to the one-device step's."""
+    load-balance loss from global means. Its shards' (or rows') forwards
+    run first and one backward follows (``_moe_global_step`` on whole
+    leaves, ``_tp_step`` on rows; a tensor-parallel row runs under one
+    dispatch in any case), so every shard's activations live until then:
+    on separate cards each holds its own shard's, as GSPMD does; on one
+    card holding every shard they add up to the one-device step's."""
     def vag(params, batch):
         spec = _sh.data_specs({"tokens": batch["tokens"]}, mesh,
                               include_model=batch_over_model)["tokens"]
@@ -475,9 +520,12 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, mesh,
 
     A mesh of one shard gives ``make_train_step`` itself. A MoE config on
     any mesh gives the reference's step on the global batch (global expert
-    capacity and load-balance loss), and a config ``tp_covers`` on a
-    "model" axis that does not carry the batch the tensor-parallel step
-    (``make_sharded_value_and_grad``, as is ``batch_over_model``)."""
+    capacity and load-balance loss), and a config ``tp_covers`` (dbrx and
+    deepseek included) on a "model" axis that does not carry the batch the
+    tensor-parallel step (``make_sharded_value_and_grad``, as is
+    ``batch_over_model``). Under ``sharding.hint_mesh`` a config with
+    ``moe_impl="a2a"`` and no first dense layers (dbrx) runs the
+    all-to-all inside each row (``moe.moe_apply_a2a_tp``)."""
     if mesh.size == 1:
         return make_train_step(cfg, opt_cfg)
     vag = make_sharded_value_and_grad(cfg, mesh, batch_over_model)

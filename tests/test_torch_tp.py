@@ -15,8 +15,9 @@ embedding, head, logits and cross-entropy split by vocabulary. Held here:
   (2, 2, 2) against the reference's GSPMD step (one 8-device subprocess);
 * that the path is the TP one: every "model"-split leaf reaches a position
   as its piece, the logits as a range of the vocabulary; that the layout
-  and the config pick it (MoE, MLA, mamba2, rwkv6 and a batch split over
-  "model" keep the whole-leaf path);
+  and the config pick it (mamba2, rwkv6 and a batch split over "model"
+  keep the whole-leaf path; the MoE and MLA configs' step is
+  ``tests/test_torch_tp_moe.py``'s);
 * each TP piece against its whole counterpart: the vocabulary-parallel
   embedding, logits, cross-entropy and z-loss, the column / row MLP,
   attention split into whole heads, onto one KV head and through a head;
@@ -174,14 +175,15 @@ def test_tp_step_matches_one_device(name, tag):
 
 @pytest.mark.parametrize("name,batch_over_model,tp", [
     ("mistral-nemo-12b", False, True), ("starcoder2-3b", False, True),
-    ("smollm-360m", True, False), ("dbrx-132b", False, False),
-    ("deepseek-v2-lite-16b", False, False), ("zamba2-7b", False, False),
+    ("smollm-360m", True, False), ("dbrx-132b", False, True),
+    ("deepseek-v2-lite-16b", False, True), ("zamba2-7b", False, False),
     ("rwkv6-3b", False, False)])
 def test_layout_and_config_pick_the_path(name, batch_over_model, tp):
     """The layout decides, as for GSPMD: tensor-parallel where the batch is
-    not split over "model" and the config is attention (no MLA) with a
-    swiglu or gelu MLP; the MoE, MLA, mamba2 and rwkv6 configs and a batch
-    split over "model" keep the whole-leaf path."""
+    not split over "model" and the config is attention (MLA or not) with a
+    swiglu, gelu or MoE channel (dbrx and deepseek included); the mamba2
+    and rwkv6 configs and a batch split over "model" keep the whole-leaf
+    path."""
     cfg = reduced(ARCHS[name])
     mesh = _mesh("4x2")
     params = init_params(cfg, device=CPU, seed=0)
@@ -463,20 +465,21 @@ def test_tp_step_with_remat_equals_without_bit_for_bit(name):
 def test_tp_forward_on_a_row_of_one_is_forward_bit_for_bit(name, remat):
     """``forward_tp`` repeats ``forward``'s structure for every config that
     ``tp_covers``: on a row of one position (every leaf whole) it gives
-    ``forward``'s logits, and the loss of ``_tp_terms`` the one-device
-    loss and gradients, bit for bit, so that the two forms cannot drift
+    ``forward``'s logits and MoE aux, and the loss of ``_tp_terms`` the
+    one-device loss and gradients, bit for bit, so that the two forms cannot drift
     apart."""
     cfg = reduced(ARCHS[name]).replace(remat=remat, scan_layers=True)
     params = init_params(cfg, device=CPU, seed=0)
     b = _torch(_batch(cfg, B=2))
     kw = {k: b[k] for k in ("vision_embeds", "audio_frames") if k in b}
     with torch.no_grad():
-        want, _ = transformer.forward(cfg, params, b["tokens"], **kw)
+        want, want_aux = transformer.forward(cfg, params, b["tokens"], **kw)
         with mesh_lib.tensor_parallel(_row(1)):
-            got, _ = transformer.forward_tp(
+            got, got_aux = transformer.forward_tp(
                 cfg, [params], [b["tokens"]],
                 **{k: [v] for k, v in kw.items()})
     assert got[0].numpy().tobytes() == want.numpy().tobytes()
+    assert got_aux.numpy().tobytes() == want_aux.numpy().tobytes()
     n_tok = torch.tensor(float(b["labels"].numel()))
     (t1, _), g1 = value_and_grad(tstep._global_loss_fn(cfg, n_tok, n_tok),
                                  params, b)

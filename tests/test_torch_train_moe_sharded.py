@@ -7,9 +7,12 @@ shardings: under GSPMD that is the one-device function on the global
 batch, with the expert capacity from the global token count, each (token,
 slot)'s place in its expert from a cumsum over the global token order, and
 the load-balance loss from global means. The port's sharded step is held,
-on (4, 2) and (2, 2, 2) meshes of CPU shards, for reduced ``dbrx-132b`` and
-reduced ``deepseek-v2-lite-16b``, at the config's ``capacity_factor`` and
-at 0.5, against
+on (4, 2) and (2, 2, 2) meshes of CPU shards (which run it tensor-parallel
+over "model", experts and MLA heads split: ``_tp_step``, whose own cases
+are ``tests/test_torch_tp_moe.py``'s) and on an (8,) "data" mesh (no
+"model" split, so the whole-leaf ``_moe_global_step``), for reduced
+``dbrx-132b`` and reduced ``deepseek-v2-lite-16b``, at the config's
+``capacity_factor`` and at 0.5, against
 
 * the reference's GSPMD step and its ``jax.value_and_grad`` on the port's
   seeded weights (one 8-device subprocess for the whole file, eight
@@ -44,6 +47,7 @@ from repro_torch.resilience import faults
 from repro_torch.train import (
     OptimizerConfig, make_loss_fn, make_train_step, optimizer as opt,
 )
+from repro_torch.train import train_step as tstep
 from repro_torch.train.train_step import (
     make_sharded_train_step, make_sharded_value_and_grad, shard_train_state,
     value_and_grad,
@@ -57,7 +61,8 @@ PARAM_ATOL_LR = 0.5
 GNORM_RTOL = 1e-5
 NAMES = ["dbrx-132b", "deepseek-v2-lite-16b"]
 MESHES = {"4x2": ((4, 2), ("data", "model")),
-          "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+          "2x2x2": ((2, 2, 2), ("pod", "data", "model")),
+          "8": ((8,), ("data",))}
 CAPACITY = {"config": None, "half": 0.5}
 CASES = [(n, t, c) for n in NAMES for t in MESHES for c in CAPACITY]
 
@@ -65,6 +70,9 @@ CASES = [(n, t, c) for n in NAMES for t in MESHES for c in CAPACITY]
 @pytest.fixture(autouse=True)
 def _fresh_state():
     faults.configure("", 0)
+    # the tensor-parallel rows run many small ops: one intra-op thread
+    # keeps them from waiting on cores that the other workers hold
+    torch.set_num_threads(1)
     yield
     trace.reset()
     metrics.reset()
@@ -83,7 +91,8 @@ def _mesh(tag):
 
 
 def _n_batch_shards(tag):
-    return int(np.prod(MESHES[tag][0][:-1]))
+    shape, names = MESHES[tag]
+    return int(np.prod([n for n, a in zip(shape, names) if a != "model"]))
 
 
 def _batch(cfg, B=8, S=16, seed=1):
@@ -156,6 +165,7 @@ def _one_device(cfg, params, b):
 def _sharded(cfg, params, b, tag):
     mesh = _mesh(tag)
     ps, st = shard_train_state(params, opt.init(params), mesh)
+    assert tstep._tp_applies(cfg, mesh, ps, False) is ("model" in mesh.shape)
     with moe.recording_routes() as routes:
         (total, parts), grads = make_sharded_value_and_grad(cfg, mesh)(ps,
                                                                        b)
