@@ -3066,6 +3066,13 @@ REMAT_GRAD_ATOL_REL = 1e-5   # the embedding's backward adds with atomics
 SERVE_PROMPTS = (4, 256)
 SERVE_DECODE_STEPS = 16
 MOE_PREFILL = (8, 32)
+# (d)'s checks added with the rows' serving: mistral-nemo-12b at its widths
+# cut to 2 layers, 4 prompts of 512 into 2,048 lines; the MoE prefill
+# followed by 8 decode steps on (2, 2); budget 15 s together
+NEMO_LAYERS = 2
+NEMO_SERVE = (4, 512)
+NEMO_CACHE = 2048
+MOE_DECODE_STEPS = 8
 
 
 # the one-device train steps the dry run accounts for ``lm_remat``: (b) at
@@ -3304,93 +3311,222 @@ def remat_full_width(figures: dict) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def sharded_serving_on_card() -> dict:
-    """(d) The dry run's sharded prefill and decode (``launch.dryrun``'s
-    ``sharded_prefill`` / ``sharded_decode``) on meshes of the one card
-    against the one-device path: full ``smollm-360m`` (fp32 compute) on a
-    (2, 2) mesh, 4 prompts of 256 tokens, then 16 greedy decode steps
-    (logits within ``LM_TOL``, tokens equal); reduced
-    ``deepseek-v2-lite-16b`` and ``dbrx-132b`` prefill on (2, 2) and
-    (4, 2) under the hint mesh (dbrx's all-to-all) against the one-device
-    prefill under it, routing equal."""
-    from repro_torch.configs import ARCHS, reduced
+def serve_paths_ran() -> dict:
+    """Which path the sharded prefill and decode took since the counts
+    were cleared (``launch.dryrun.serve_paths``: "row" or "whole leaves")
+    and how often each layer's row decode ran the flash-decoding combine
+    (``attention.tp_splits``, ``mla.tp_splits``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import attention, mla
+
+    return {"serve_paths": dict(dryrun.serve_paths),
+            "attention_flash_decoding": attention.tp_splits[
+                "flash-decoding"],
+            "mla_flash_decoding": mla.tp_splits["flash-decoding"]}
+
+
+def clear_serve_paths() -> None:
+    from repro_torch.launch import dryrun
+    from repro_torch.models import attention, mla
+
+    dryrun.serve_paths.clear()
+    attention.tp_splits.clear()
+    mla.tp_splits.clear()
+
+
+def greedy_against_one_device(cfg, params, p_sh, mesh, toks, max_seq: int,
+                              steps: int, hint=None, p_whole=None) -> dict:
+    """The sharded prefill of ``toks`` into ``max_seq`` lines and ``steps``
+    greedy decode steps (``launch.dryrun``), against the one-device
+    ``prefill`` / ``decode_step`` fed the one-device path's tokens: each
+    call's last logits within ``LM_TOL``, the tokens equal, and under
+    ``hint`` (the hint mesh, both paths) the MoE routes of every call
+    equal. With ``p_whole`` (the parameters placed without "model", so
+    that the layout picks the whole-leaf path, which leaves its input
+    state as it is), the first decode step also runs on whole leaves, and
+    each path's peak device bytes above what was held before it, and its
+    ms, are taken."""
+    import contextlib
+
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import dryrun
-    from repro_torch.launch.specs import ShapeCell
-    from repro_torch.models import decode_step, init_params, moe, prefill
+    from repro_torch.models import decode_step, moe, prefill
 
-    t0 = time.perf_counter()
-    cfg = ARCHS[REMAT_ARCH].replace(compute_dtype="float32")
-    B, S = SERVE_PROMPTS
-    max_seq = S + SERVE_DECODE_STEPS
-    mesh = card_mesh((2, 2), ("data", "model"))
-    params = init_params(cfg, device="cuda", seed=0)
-    p_sh = sh.shard_tree(params, sh.param_specs(
-        params, mesh, fsdp=dryrun._serve_fsdp(cfg, mesh)), mesh)
-    toks, _ = lm_inputs(cfg, B, S, seed=3)
-    toks = toks.cuda()
-    s_specs = dryrun._decode_state_specs(cfg, B, max_seq, torch.float32,
+    s_specs = dryrun._decode_state_specs(cfg, toks.shape[0], max_seq,
+                                         getattr(torch, cfg.compute_dtype),
                                          mesh)
     pre = dryrun.sharded_prefill(cfg, mesh, max_seq, s_specs)
     dec = dryrun.sharded_decode(cfg, mesh, s_specs)
-    errs, tok_equal = [], True
+    def ctx():
+        return sh.hint_mesh(hint) if hint is not None else \
+            contextlib.nullcontext()
+
+    n_shards = mesh.shape["data"]
+    errs, tok_equal, routes_equal, out = [], True, True, {}
+    compared = 0
+
+    def routed(fn, *args):
+        with ctx(), moe.recording_routes() as r:
+            res = fn(*args)
+        return res, r
+
+    def measured(fn, *args):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with ctx():
+            res = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - held, \
+            start.elapsed_time(end)
+
     with torch.no_grad():
-        got, st_sh = pre(p_sh, {"tokens": toks})
-        want, st = prefill(cfg, params, toks, max_seq)
-        ok = True
-        for i in range(SERVE_DECODE_STEPS + 1):
+        (got, st_sh), r_sh = routed(pre, p_sh, {"tokens": toks})
+        (want, st), r_one = routed(prefill, cfg, params, toks, max_seq)
+        for i in range(steps + 1):
             c = compare(got[:, -1], want[:, -1], LM_TOL["rtol"],
                         LM_TOL["atol_rel_to_max"] * float(
                             want.abs().max()))
             errs.append(c["worst_err_over_allowed"])
-            ok = ok and c["ok"]
             t_sh, t_one = got.argmax(-1), want.argmax(-1)
             tok_equal = tok_equal and bool(torch.equal(t_sh, t_one))
-            if i == SERVE_DECODE_STEPS:
+            n = len(r_one)
+            compared += n
+            routes_equal = routes_equal and len(r_sh) == n * n_shards and all(
+                torch.equal(torch.cat([r_sh[b * n + j][k]
+                                       for b in range(n_shards)]),
+                            r_one[j][k])
+                for j in range(n) for k in ("expert", "keep", "slot"))
+            if i == steps:
                 break
-            got, st_sh = dec(p_sh, st_sh, t_sh)
-            want, st = decode_step(cfg, params, t_one, st)
-    del p_sh, params, st_sh, st
+            if p_whole is not None and i == 0:
+                res, out["peak_bytes_whole_leaves"], \
+                    out["ms_whole_leaves"] = measured(dec, p_whole, st_sh,
+                                                      t_one)
+                del res
+                (got, st_sh), out["peak_bytes_rows"], out["ms_rows"] = \
+                    measured(dec, p_sh, st_sh, t_one)
+                r_sh = []
+                (want, st), _, out["ms_one_device"] = measured(
+                    decode_step, cfg, params, t_one, st)
+                r_one = []
+                continue
+            (got, st_sh), r_sh = routed(dec, p_sh, st_sh, t_one)
+            (want, st), r_one = routed(decode_step, cfg, params, t_one, st)
+    del st_sh, st
+    return {"worst_err_over_allowed": max(errs), "tokens_equal": tok_equal,
+            "routes_equal": routes_equal, "moe_calls_compared": compared,
+            **out}
+
+
+def sharded_serving_on_card() -> dict:
+    """(d) The dry run's sharded prefill and decode (``launch.dryrun``'s
+    ``sharded_prefill`` / ``sharded_decode``) on meshes of the one card
+    against the one-device path; every covered config here takes the rows
+    of "model" positions with the cache split by sequence (the
+    flash-decoding layout), and each line records the path that ran.
+    Full ``smollm-360m`` (fp32 compute) on a (2, 2) mesh, 4 prompts of
+    256 tokens, then 16 greedy decode steps (logits within ``LM_TOL``,
+    tokens equal). ``mistral-nemo-12b`` at its published widths cut to
+    ``NEMO_LAYERS`` (fp32; whole heads on (2, 2)): 4 prompts of 512 into
+    2,048 lines (pieces past the cursor fully masked), 16 greedy steps,
+    tokens equal, the row step's peak beside the whole-leaf step's (the
+    weights placed without "model").
+    Reduced ``deepseek-v2-lite-16b`` (the MLA latent cache) and
+    ``dbrx-132b`` (the a2a in the rows) under the hint mesh: prefill on
+    (2, 2) and (4, 2), and on (2, 2) ``MOE_DECODE_STEPS`` decode steps,
+    against the one-device path under the same hint mesh, routing equal
+    at every call."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+
+    def placed(cfg, params, mesh):
+        return sh.shard_tree(params, sh.param_specs(
+            params, mesh, fsdp=dryrun._serve_fsdp(cfg, mesh)), mesh)
+
+    cfg = ARCHS[REMAT_ARCH].replace(compute_dtype="float32")
+    B, S = SERVE_PROMPTS
+    mesh = card_mesh((2, 2), ("data", "model"))
+    params = init_params(cfg, device="cuda", seed=0)
+    clear_serve_paths()
+    run = greedy_against_one_device(
+        cfg, params, placed(cfg, params, mesh), mesh,
+        lm_inputs(cfg, B, S, seed=3)[0].cuda(), S + SERVE_DECODE_STEPS,
+        SERVE_DECODE_STEPS)
+    paths = serve_paths_ran()
+    del params
     torch.cuda.empty_cache()
+    rows = paths["serve_paths"] == {"row": 1 + SERVE_DECODE_STEPS}
     smollm = {"arch": cfg.name, "compute_dtype": "float32",
               "mesh": mesh.shape, "prompts": [B, S],
-              "decode_steps": SERVE_DECODE_STEPS,
-              "worst_err_over_allowed": max(errs), "tokens_equal": tok_equal,
-              "ok": ok and tok_equal}
+              "decode_steps": SERVE_DECODE_STEPS, **run, **paths,
+              "seconds": time.perf_counter() - t0,
+              "ok": run["tokens_equal"] and run["worst_err_over_allowed"]
+              <= 1.0 and rows}
 
+    t1 = time.perf_counter()
+    cfg = ARCHS["mistral-nemo-12b"].replace(n_layers=NEMO_LAYERS,
+                                            compute_dtype="float32")
+    B, S = NEMO_SERVE
+    params = init_params(cfg, device="cuda", seed=0)
+    p_whole = sh.shard_tree(params, strip_model(sh.param_specs(
+        params, mesh, fsdp=dryrun._serve_fsdp(cfg, mesh))), mesh)
+    clear_serve_paths()
+    run = greedy_against_one_device(
+        cfg, params, placed(cfg, params, mesh), mesh,
+        lm_inputs(cfg, B, S, seed=5)[0].cuda(), NEMO_CACHE,
+        SERVE_DECODE_STEPS, p_whole=p_whole)
+    del p_whole
+    paths = serve_paths_ran()
+    del params
+    torch.cuda.empty_cache()
+    rows = (paths["serve_paths"] == {"row": 1 + SERVE_DECODE_STEPS,
+                                     "whole leaves": 1}
+            and paths["attention_flash_decoding"]
+            == SERVE_DECODE_STEPS * NEMO_LAYERS * mesh.shape["data"])
+    nemo = {"arch": cfg.name, "layers": NEMO_LAYERS,
+            "compute_dtype": "float32", "mesh": mesh.shape,
+            "prompts": [B, S], "cache_lines": NEMO_CACHE,
+            "decode_steps": SERVE_DECODE_STEPS, **run, **paths,
+            "seconds": time.perf_counter() - t1,
+            "ok": run["tokens_equal"] and run["worst_err_over_allowed"]
+            <= 1.0 and rows
+            and run["peak_bytes_rows"] < run["peak_bytes_whole_leaves"]}
+
+    t2 = time.perf_counter()
     moe_rows = []
     for name in ("deepseek-v2-lite-16b", "dbrx-132b"):
         mcfg = reduced(ARCHS[name])
         mp = init_params(mcfg, device="cuda", seed=0)
         mt = lm_inputs(mcfg, *MOE_PREFILL, seed=4)[0].cuda()
-        for shape, names in (((2, 2), ("data", "model")),
-                             ((4, 2), ("data", "model"))):
-            m = card_mesh(shape, names)
-            cell = dryrun.build_prefill(mcfg, m, ShapeCell(
-                "p", "prefill", MOE_PREFILL[1], MOE_PREFILL[0]))
-            with torch.no_grad(), moe.recording_routes() as r_sh:
-                got, _ = cell.fn(*cell.place(mp, {"tokens": mt}))
-            with torch.no_grad(), sh.hint_mesh(m), \
-                    moe.recording_routes() as r_one:
-                want, _ = prefill(mcfg, mp, mt, MOE_PREFILL[1])
-            n = len(r_one)
-            joined = {k: [torch.cat([r_sh[b * n + i][k]
-                                     for b in range(len(r_sh) // n)])
-                          for i in range(n)]
-                      for k in ("expert", "keep", "slot")}
-            routing = n > 0 and len(r_sh) % n == 0 and all(
-                torch.equal(a, w[k]) for k in joined
-                for a, w in zip(joined[k], r_one))
-            c = compare(got, want, LM_TOL["rtol"],
-                        LM_TOL["atol_rel_to_max"] * float(want.abs().max()))
-            moe_rows.append({"arch": name, "mesh": m.shape,
-                             "routing_equal": routing,
-                             "worst_err_over_allowed":
-                                 c["worst_err_over_allowed"],
-                             "ok": routing and c["ok"]})
+        for shape, steps in (((2, 2), MOE_DECODE_STEPS), ((4, 2), 0)):
+            m = card_mesh(shape, ("data", "model"))
+            clear_serve_paths()
+            run = greedy_against_one_device(
+                mcfg, mp, placed(mcfg, mp, m), m, mt,
+                MOE_PREFILL[1] + MOE_DECODE_STEPS, steps, hint=m)
+            paths = serve_paths_ran()
+            moe_rows.append({
+                "arch": name, "mesh": m.shape, "decode_steps": steps,
+                **run, **paths,
+                "ok": run["routes_equal"] and run["moe_calls_compared"] > 0
+                and run["tokens_equal"]
+                and run["worst_err_over_allowed"] <= 1.0
+                and paths["serve_paths"] == {"row": 1 + steps}})
         del mp
-    return {"smollm": smollm, "moe_prefill": moe_rows,
-            "ok": smollm["ok"] and all(r["ok"] for r in moe_rows),
+    return {"smollm": smollm, "nemo": nemo, "moe": moe_rows,
+            "moe_seconds": time.perf_counter() - t2,
+            "new_checks_seconds": time.perf_counter() - t1,
+            "ok": smollm["ok"] and nemo["ok"]
+            and all(r["ok"] for r in moe_rows),
             "seconds": time.perf_counter() - t0}
 
 

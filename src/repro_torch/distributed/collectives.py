@@ -11,9 +11,10 @@ lives there. ``psum`` and ``ppermute`` serve the STKDE strategies;
 the parameter placement of ``sharding`` and the compressed gradient sum of
 ``train.grad_compress``; ``all_reduce``, ``pmax_row`` and ``all_gather_row``
 (a copy of the result on every member of a row of positions) the tensor
-parallel layers, and ``reduce_scatter`` the tensor-parallel step's
-gradients. All are built of ``torch`` ops that autograd differentiates
-(``.to``, indexing, ``torch.cat``, ``torch.stack``, adds).
+parallel layers, ``broadcast_row`` the row decode's one-member results,
+and ``reduce_scatter`` the tensor-parallel step's gradients. All are built
+of ``torch`` ops that autograd differentiates (``.to``, indexing,
+``torch.cat``, ``torch.stack``, adds).
 
 ``counting()`` adds up, while it is open, the bytes each receiving device
 (or mesh position, ``mesh.position_of``) gets per collective kind: the
@@ -221,18 +222,30 @@ def all_gather_row(parts: Sequence[torch.Tensor], dim: int, devices) -> list:
             for d in devices]
 
 
+def broadcast_row(t: torch.Tensor, devices) -> list:
+    """``t``, which lives at one member of a row of positions, on every
+    member's device (its own copy where it is; a received copy elsewhere,
+    counted as ``collective-permute`` traffic)."""
+    _call("collective-permute")
+    return [_move(t, d, "collective-permute") for d in devices]
+
+
 def all_to_all(send: np.ndarray, dim: int) -> np.ndarray:
     """Exchange over the array axis ``dim`` (``jax.lax.all_to_all`` with
     ``split_axis=0, concat_axis=0, tiled=False``): along that axis, shard
     ``j``'s tensor has a leading axis of the group's size, and shard ``m``
     receives ``stack_j(send[j][m])`` on its own device. One group per
-    position of the other array axes."""
+    position of the other array axes. A shard may send a list of one
+    tensor per member in place of the tensor: the parts for one receiver
+    must then agree in shape, the parts for two receivers need not."""
     _call("all-to-all")
     out = np.empty(send.shape, dtype=object)
     n = send.shape[dim]
     for idx in np.ndindex(send.shape):
         m = idx[dim]
-        dev = _mesh.device_of(send[idx])
+        own = send[idx]
+        dev = _mesh.device_of(own if isinstance(own, torch.Tensor)
+                              else own[m])
         row = []
         for j in range(n):
             src = list(idx)

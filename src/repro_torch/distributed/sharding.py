@@ -375,26 +375,102 @@ def _batch_entry(spec: P, axes) -> Optional[Tuple[int, int]]:
     return None
 
 
+def _block_pieces(leaf: Sharded, axes, k: int):
+    """The pieces of batch block ``k`` of a leaf split over ``axes`` (the
+    batch axes' array axes dropped) and the spec without that entry; or
+    ``None`` for a leaf not split over ``axes``."""
+    hit = _batch_entry(leaf.spec, axes)
+    if hit is None:
+        return None
+    dim, a = hit
+    sizes = [leaf.mesh.shape[x] for x in axes]
+    sub = leaf.pieces[(slice(None),) * a + tuple(
+        slice(i, i + 1) for i in np.unravel_index(k, sizes))]
+    sub = sub.reshape(sub.shape[:a] + sub.shape[a + len(axes):])
+    return sub, P(*(None if d == dim else e for d, e in enumerate(leaf.spec)))
+
+
 def batch_block(leaf: Sharded, axes, k: int, n: int,
                 device) -> torch.Tensor:
     """The rows of batch shard ``k`` (of ``n``, over the mesh ``axes`` that
     split the batch) of a ``Sharded`` leaf, whole in every other dim, on
     ``device``: only that block's pieces are gathered. A leaf that is not
     split over ``axes`` is gathered whole (it must then be one block)."""
-    hit = _batch_entry(leaf.spec, axes)
-    if hit is None:
+    block = _block_pieces(leaf, axes, k)
+    if block is None:
         if n != 1:
             raise NotImplementedError(
                 f"a leaf of spec {leaf.spec} is not split over the batch "
                 f"axes {tuple(axes)} of {n} shards")
         return gather(leaf, device)
-    dim, a = hit
-    sizes = [leaf.mesh.shape[x] for x in axes]
-    sub = leaf.pieces[(slice(None),) * a + tuple(
-        slice(i, i + 1) for i in np.unravel_index(k, sizes))]
-    sub = sub.reshape(sub.shape[:a] + sub.shape[a + len(axes):])
-    spec = P(*(None if d == dim else e for d, e in enumerate(leaf.spec)))
+    sub, spec = block
     return gather(Sharded(sub, spec, leaf.mesh, (), leaf.dtype), device)
+
+
+def row_block(leaf: Sharded, axes, k: int, n: int, row) -> list:
+    """Batch shard ``k``'s block of a ``Sharded`` leaf at each position of
+    its row over "model" (``row``: the block's positions in "model"
+    order), nothing gathered: where the spec splits a dim over "model"
+    besides the batch over ``axes`` (a cache's sequence), each position's
+    own piece, the tensor itself (a decode step writes it in place); a
+    leaf split over the batch only, its block's piece at the row's first
+    position, where the replicas sit (``None`` at the others); a leaf
+    split over nothing (a per-row ``step``), its block's ``n``-th of the
+    rows, copied to every position."""
+    M = len(row)
+    block = _block_pieces(leaf, axes, k)
+    if block is None:
+        if leaf.spec.mesh_axes():
+            raise NotImplementedError(
+                f"a leaf of spec {leaf.spec} on a row: not split over the "
+                f"batch axes {tuple(axes)}")
+        t = leaf.pieces.reshape(()).item()
+        rows = t.shape[0] // n
+        return [t.narrow(0, k * rows, rows).to(d) for d in row]
+    sub, spec = block
+    rest = spec.mesh_axes()
+    if not rest:
+        return [sub.reshape(()).item()] + [None] * (M - 1)
+    if rest != (TP,):
+        raise NotImplementedError(
+            f"a leaf of spec {leaf.spec} on a row: split over {rest} "
+            f"besides the batch")
+    return list(sub)
+
+
+def shard_rows(blocks: list, spec: P, mesh: Mesh, axes) -> Sharded:
+    """The inverse of ``row_block``: ``blocks[k][j]`` batch shard ``k``'s
+    tensor at position ``j`` of its row, made into the pieces of ``spec``
+    where they lie (nothing copied or moved): each position's own piece
+    where the spec splits over "model" besides the batch, the row's first
+    position's where it splits over the batch only; a leaf split over
+    nothing is the blocks' first positions' rows joined (``all_gather``)
+    on the mesh's first device."""
+    hit = _batch_entry(spec, axes)
+    if hit is None:
+        if spec.mesh_axes():
+            raise NotImplementedError(
+                f"spec {spec} on rows: not split over the batch axes "
+                f"{tuple(axes)}")
+        whole = collectives.all_gather(
+            collectives.shard_array([b[0] for b in blocks]), 0,
+            mesh.first_device)
+        one = np.empty((), dtype=object)
+        one[()] = whole
+        return Sharded(one, spec, mesh, whole.shape, whole.dtype)
+    _, a = hit
+    names = spec.mesh_axes()
+    t = names.index(TP) if TP in names else None
+    sizes = [mesh.shape[x] for x in axes]
+    devices = _spec_devices(spec, mesh)
+    pieces = np.empty(devices.shape, dtype=object)
+    for idx in np.ndindex(devices.shape):
+        k = int(np.ravel_multi_index(idx[a:a + len(axes)], sizes))
+        pieces[idx] = blocks[k][idx[t] if t is not None else 0]
+    first = pieces.flat[0]
+    shape = [first.shape[d] * _size(mesh, P.axes_of(e))
+             for d, e in enumerate(spec)] + list(first.shape[len(spec):])
+    return Sharded(pieces, spec, mesh, shape, first.dtype)
 
 
 def shard_blocks(blocks, spec: P, mesh: Mesh, axes) -> Sharded:
@@ -549,6 +625,50 @@ def batch_block_tree(tree, axes, k: int, n: int, device):
         return type(tree)(batch_block_tree(v, axes, k, n, device)
                           for v in tree)
     return tree
+
+
+def row_block_tree(tree, axes, k: int, n: int, row) -> list:
+    """``row_block`` of every ``Sharded`` leaf of ``tree``: one tree per
+    position of ``row``; other leaves as they are at every position."""
+    M = len(row)
+    if isinstance(tree, Sharded):
+        return row_block(tree, axes, k, n, row)
+    if isinstance(tree, dict):
+        parts = {key: row_block_tree(v, axes, k, n, row)
+                 for key, v in tree.items()}
+        return [{key: parts[key][j] for key in parts} for j in range(M)]
+    if hasattr(tree, "_fields"):
+        parts = [row_block_tree(getattr(tree, f), axes, k, n, row)
+                 for f in tree._fields]
+        return [type(tree)(*(p[j] for p in parts)) for j in range(M)]
+    if isinstance(tree, (list, tuple)):
+        parts = [row_block_tree(v, axes, k, n, row) for v in tree]
+        return [type(tree)(p[j] for p in parts) for j in range(M)]
+    return [tree] * M
+
+
+def shard_rows_tree(blocks: list, specs, mesh: Mesh, axes):
+    """``shard_rows`` leaf by leaf: ``blocks[k]`` batch shard ``k``'s trees,
+    one per position of its row (the structure of the first position's);
+    a non-tensor leaf is the first block's first position's."""
+    def walk(trees, sp):
+        first = trees[0][0]
+        if isinstance(first, torch.Tensor):
+            return shard_rows(trees, sp, mesh, axes)
+        if isinstance(first, dict):
+            return {key: walk([[t[key] for t in r] for r in trees], sp[key])
+                    for key in first}
+        if hasattr(first, "_fields"):
+            return type(first)(*(walk([[getattr(t, f) for t in r]
+                                       for r in trees], getattr(sp, f))
+                                 for f in first._fields))
+        if isinstance(first, (list, tuple)):
+            return type(first)(walk([[t[i] if t is not None else None
+                                      for t in r] for r in trees], sp[i])
+                               for i in range(len(first)))
+        return first
+
+    return walk(blocks, specs)
 
 
 def shard_blocks_tree(blocks: list, specs, mesh: Mesh, axes):

@@ -8,9 +8,8 @@ XLA's lower-and-compile on fake devices.
 
 A cell builds the port's own step for its shape (``build_train``: the
 sharded train step; ``build_prefill`` / ``build_decode``: the sharded
-prefill and decode steps, each batch shard running the one-device
-``prefill`` / ``decode_step`` on its rows with the pieces gathered there)
-on the production mesh (16 x 16, or 2 x 16 x 16), and ``account`` runs it
+prefill and decode steps, ``sharded_prefill`` / ``sharded_decode``) on
+the production mesh (16 x 16, or 2 x 16 x 16), and ``account`` runs it
 once under ``FakeTensorMode``: shapes, dtypes and devices, no storage, no
 card touched. What a cell records (one JSON per cell, written atomically,
 with the reference's keys):
@@ -52,15 +51,19 @@ cross-entropy by vocabulary. A position still gathers all its pieces over
 reduce-scatter, where GSPMD gathers layer by layer (ROADMAP §C.7). An
 ``fsdp`` config (zamba2, rwkv6, smollm, starcoder2) splits its batch over
 "model" and gathers whole leaves per batch shard, as the reference's
-layout does. Every config's sharded prefill and decode still run each
-batch shard at the position of model index 0 with whole leaves gathered
-there, so their per-position peaks are far above a GSPMD compile's. The
-cells report the port's own figure. A moved tensor's gradient counts as
-traffic too (``collectives``). No number here was measured on a card.
+layout does. The sharded prefill and decode of the same configs (every
+``tp_covers`` config: serving splits the weights over "model") run each
+batch shard on its row of positions too, the cache's sequence split over
+the row (the reference's flash-decoding layout); zamba2 and rwkv6 still
+run each batch shard at the position of model index 0 with whole leaves
+and whole cache rows gathered there (ROADMAP §C.7). The cells report the
+port's own figure. A moved tensor's gradient counts as traffic too
+(``collectives``). No number here was measured on a card.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -86,7 +89,8 @@ from ..models import moe
 from ..models.transformer import tree_map
 from ..train import OptimizerConfig
 from ..train import optimizer as opt_lib
-from ..train.train_step import make_sharded_train_step, shard_train_state
+from ..train.train_step import (_tp_applies, make_sharded_train_step,
+                                row_pieces, shard_train_state)
 from . import roofline as rl
 from . import specs as specs_lib
 from .mesh import make_production_mesh
@@ -423,18 +427,96 @@ def _dispatching(d):
         contextlib.nullcontext()
 
 
+# which path the sharded prefill and decode took, one count a call: "row"
+# (each batch shard on its row of "model" positions, the cache split by
+# sequence) or "whole leaves" (read and cleared by callers that must know)
+serve_paths: collections.Counter = collections.Counter()
+
+
+def _row_grid(mesh, axes) -> np.ndarray:
+    """The batch shards' rows of "model" positions: (shards, M)."""
+    return np.asarray(mesh.devices_of(tuple(axes) + (sharding.TP,)),
+                      dtype=object).reshape(-1, mesh.shape[sharding.TP])
+
+
+def _whole_vocab(cfg, logits, row):
+    """A row's logits whole on its first position: the positions' ranges
+    of the vocabulary gathered there (a whole head's logits as they are)."""
+    if logits[0].shape[-1] == cfg.vocab:
+        return logits[0]
+    return collectives.all_gather(collectives.shard_array(logits), -1, row[0])
+
+
+def _rows_prefill(cfg, mesh, max_seq, state_specs, params, batch):
+    _, rows, axes = _batch_shards(mesh, batch["tokens"])
+    grid = _row_grid(mesh, axes)
+    n_tok = batch["tokens"].numel()
+    logits, states, disp = [], [], None
+    for k, row in enumerate(map(tuple, grid)):
+        with mesh_lib.at(row[0]), mesh_lib.tensor_parallel(row):
+            disp = _shard_dispatch(cfg, len(grid), n_tok, disp, row[0], k)
+            ps = row_pieces(params, row)
+            parts = mesh_lib.each(lambda dev: {
+                n: v.narrow(0, k * rows, rows).to(dev)
+                for n, v in batch.items()}, row)
+            kw = {n: [p[n] for p in parts] for n in parts[0] if n != "tokens"}
+            with _dispatching(disp):
+                lg, st = model_lib.prefill_tp(
+                    cfg, ps, [p["tokens"] for p in parts], max_seq, **kw)
+            del ps
+            logits.append(_whole_vocab(cfg, lg, row))
+        states.append(st)
+    return (collectives.all_gather(collectives.shard_array(logits), 0),
+            sharding.shard_rows_tree(states, state_specs, mesh, axes))
+
+
+def _rows_decode(cfg, mesh, state_specs, params, state, token):
+    _, rows, axes = _batch_shards(mesh, token)
+    grid = _row_grid(mesh, axes)
+    logits, states, disp = [], [], None
+    for k, row in enumerate(map(tuple, grid)):
+        with mesh_lib.at(row[0]), mesh_lib.tensor_parallel(row):
+            disp = _shard_dispatch(cfg, len(grid), token.numel(), disp,
+                                   row[0], k)
+            ps = row_pieces(params, row)
+            st = sharding.row_block_tree(state, axes, k, len(grid), row)
+            toks = mesh_lib.each(
+                lambda dev: token.narrow(0, k * rows, rows).to(dev), row)
+            with _dispatching(disp):
+                lg, st = model_lib.decode_step_tp(cfg, ps, toks, st)
+            del ps
+            logits.append(_whole_vocab(cfg, lg, row))
+        states.append(st)
+    return (collectives.all_gather(collectives.shard_array(logits), 0),
+            sharding.shard_rows_tree(states, state_specs, mesh, axes))
+
+
 def sharded_prefill(cfg, mesh, max_seq: int, state_specs):
     """The sharded prefill step the reference's jit with ``in_shardings``
     computes: ``(params, batch) -> (logits, state)``. ``params`` are
     ``Sharded`` leaves, ``batch`` whole tensors (``tokens``, and the
-    frontend's stubs); each batch shard (``data_specs``) gathers the
-    parameters at its position and runs the one-device ``prefill`` on its
-    rows (a MoE config under ``moe.global_dispatch``, so the capacity and
-    slots are the global batch's). The logits come back whole on the first
+    frontend's stubs), split into batch shards by ``data_specs``; a MoE
+    config's shards run under ``moe.global_dispatch``, so the capacity and
+    slots are the global batch's. The logits come back whole on the first
     batch shard's device, the decode state cut by ``state_specs``
-    (``decode_state_specs``) with each batch shard's rows from its own
-    block."""
+    (``decode_state_specs``).
+
+    The layout decides the path, as for the train step
+    (``train_step._tp_applies``): where the config is one
+    ``transformer.tp_covers`` takes, "model" has more than one position
+    and a leaf's spec splits it, each batch shard runs
+    ``model.prefill_tp`` on its row of "model" positions with each
+    position's pieces, and each position keeps the lines of its piece of
+    the cache (the flash-decoding layout; "row" in ``serve_paths``).
+    Otherwise each batch shard gathers the parameters whole at its
+    position and runs the one-device ``prefill`` on its rows, and the
+    state is cut from each shard's rows ("whole leaves")."""
     def fn(params, batch):
+        if _tp_applies(cfg, mesh, params, False):
+            serve_paths["row"] += 1
+            return _rows_prefill(cfg, mesh, max_seq, state_specs, params,
+                                 batch)
+        serve_paths["whole leaves"] += 1
         devs, rows, axes = _batch_shards(mesh, batch["tokens"])
         n_tok = batch["tokens"].numel()
         logits, states, disp = [], [], None
@@ -458,11 +540,24 @@ def sharded_prefill(cfg, mesh, max_seq: int, state_specs):
 
 def sharded_decode(cfg, mesh, state_specs):
     """The sharded decode step: ``(params, state, token) -> (logits,
-    state)`` with ``state`` cut by ``state_specs``. Each batch shard
+    state)`` with ``state`` cut by ``state_specs``.
+
+    On rows (``sharded_prefill``'s rule): each batch shard's positions
+    take their own pieces of the state (``sharding.row_block_tree``:
+    nothing gathered) and run ``model.decode_step_tp`` (the queries
+    gathered over the row, each position scoring its own lines, the
+    flash-decoding combine), the new line written in place into the
+    piece that holds the cursor; the state comes back as those pieces
+    (``sharding.shard_rows_tree``), so the caller's are updated as
+    ``decode_step`` updates its caches. Otherwise each batch shard
     gathers the parameters and its rows of the state (only its block's
     pieces) at its position, runs the one-device ``decode_step`` and its
-    new rows are cut back into pieces."""
+    new rows are cut back into new pieces."""
     def fn(params, state, token):
+        if _tp_applies(cfg, mesh, params, False):
+            serve_paths["row"] += 1
+            return _rows_decode(cfg, mesh, state_specs, params, state, token)
+        serve_paths["whole leaves"] += 1
         devs, rows, axes = _batch_shards(mesh, token)
         logits, states, disp = [], [], None
         for k, dev in enumerate(devs):

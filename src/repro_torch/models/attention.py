@@ -171,8 +171,9 @@ def attn_apply(
 
 
 # the splits ``attn_apply_tp`` took, one count a call: "whole layer",
-# "whole heads", "one KV head" or "through a head" (read and cleared by
-# callers that must know which ran)
+# "whole heads", "one KV head" or "through a head"; and "flash-decoding",
+# one count an ``attn_decode_tp`` call (read and cleared by callers that
+# must know which ran)
 tp_splits: collections.Counter = collections.Counter()
 
 
@@ -257,25 +258,43 @@ def init_cache(cfg, batch: int, max_seq: int, dtype,
 
 
 def write_rows(buf: torch.Tensor, positions: torch.Tensor,
-               new: torch.Tensor) -> None:
+               new: torch.Tensor, first: int = 0) -> None:
     """Write ``new[b]`` into ``buf[b, positions[b]]`` in place, for every row
     ``b``. A position at or past ``buf.shape[1]`` is dropped, as the
     reference's ``.at[rows, positions].set(..., mode="drop")`` drops it:
     ``index_put_`` has no drop mode (an index out of range raises on the CPU
-    and asserts on the card), so such a row writes back what it holds."""
+    and asserts on the card), so such a row writes back what it holds.
+
+    ``first``: the sequence position of ``buf``'s line 0 (``buf`` one
+    piece of a cache split by sequence); a row whose position lies outside
+    the piece writes nothing to it."""
     rows = torch.arange(buf.shape[0], device=buf.device)
-    keep = (positions < buf.shape[1]).view((-1,) + (1,) * (new.ndim - 1))
-    at = positions.clamp(max=buf.shape[1] - 1)
+    local = positions - first
+    keep = ((local >= 0) & (local < buf.shape[1])).view(
+        (-1,) + (1,) * (new.ndim - 1))
+    at = local.clamp(0, buf.shape[1] - 1)
     buf[rows, at] = torch.where(keep, new.to(buf.dtype), buf[rows, at])
 
 
+def write_line(buf: torch.Tensor, idx: int, positions, new: torch.Tensor,
+               first: int = 0) -> None:
+    """The new line ``new`` (B, ...) into a cache piece ``buf`` whose line 0
+    is sequence position ``first``: at the shared cursor ``idx`` where the
+    piece holds it (``positions=None``), else per row (``write_rows``)."""
+    if positions is not None:
+        write_rows(buf, positions, new, first)
+    elif first <= idx < first + buf.shape[1]:
+        buf[:, idx - first] = new.to(buf.dtype)
+
+
 def decode_mask(kv_len: int, idx, positions: Optional[torch.Tensor],
-                window: int, device) -> torch.Tensor:
+                window: int, device, first: int = 0) -> torch.Tensor:
     """Which cache lines a decode step may see, shaped to broadcast over
     (B, H, 1, S_max) scores: lines ``<= idx`` (every row at the shared
     cursor ``idx``) or ``<= positions[b]`` (row ``b`` at its own), and
-    within the sliding window when there is one."""
-    kv_pos = torch.arange(kv_len, device=device)
+    within the sliding window when there is one. ``first``: the sequence
+    position of the first line (a piece of a cache split by sequence)."""
+    kv_pos = torch.arange(first, first + kv_len, device=device)
     cur = (torch.full((1,), idx, device=device) if positions is None
            else positions)[:, None]                              # (B|1, 1)
     valid = kv_pos[None, :] <= cur
@@ -331,3 +350,115 @@ def attn_decode(
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     out = out.reshape(B, 1, H * dh) @ p["wo"].to(dt)
     return out, cache._replace(index=idx + 1)
+
+
+# ------------------------------------------- decode over a sequence-split row
+def flash_combine(scores, values, spec: str, dt, row) -> list:
+    """The flash-decoding softmax over the row: ``scores`` one piece's
+    masked fp32 scores (..., 1, lines) per position (the heads before),
+    ``values`` its values, ``spec`` the einsum of probabilities and
+    values. ``pmax_row`` of the pieces' maxima gives the global max
+    ``m``; each piece's ``exp(s - m)`` and its sum, added over the row by
+    ``all_reduce``, give the global sum ``l``; each piece contracts its
+    probabilities ``exp(s - m) / l``, cast to the compute dtype ``dt``
+    where the one-device softmax casts them, with its values, and
+    ``all_reduce`` (in fp32) adds the partial contexts. This is the
+    combine ``sum_j o_j exp(m_j - m) / sum_j l_j exp(m_j - m)`` with each
+    piece's terms taken at ``m`` before they are summed, so every
+    probability is the one-device softmax's up to the order of one sum. A
+    piece whose every line is masked (``-1e30``) adds exactly 0 while
+    another piece holds a line the row may see; with none (a row past the
+    cache's end under a window) every line weighs the same, as in the
+    one-device softmax. Returns the context at every position, in
+    ``dt``, shaped as ``spec`` gives it."""
+    big = collectives.pmax_row(
+        [s.amax(-1, keepdim=True) for s in scores], row)
+    e = _mesh.each(lambda s, m: torch.exp(s - m), scores, big)
+    total = collectives.all_reduce(
+        _mesh.each(lambda t: t.sum(-1, keepdim=True), e), row)
+    parts = _mesh.each(
+        lambda t, l, v: torch.einsum(spec, (t / l).to(dt), v).to(_F32),
+        e, total, values)
+    return _mesh.each(lambda t: t.to(dt), collectives.all_reduce(parts, row))
+
+
+def row_split_wo(width: int, ps, outs, row) -> list:
+    """The output projection of each position's whole-width attention
+    output ``outs`` (B, 1, width): with ``wo`` row-split, each position
+    multiplies its rows' slice and ``all_reduce`` adds them; with ``wo``
+    whole, each position the whole product."""
+    n = ps[0]["wo"].shape[0]
+    if n == width:
+        return _mesh.each(lambda p, o: o @ p["wo"].to(o.dtype), ps, outs)
+    return collectives.all_reduce(_mesh.each(
+        lambda j, p, o: o.narrow(-1, j * n, n) @ p["wo"].to(o.dtype),
+        range(len(row)), ps, outs), row)
+
+
+def attn_decode_tp(cfg, ps, xs, caches, use_rope: bool = True,
+                   positions=None):
+    """``attn_decode`` over the row of ``distributed.mesh.tp_row()`` with
+    the cache's sequence split over the row (the reference's
+    flash-decoding layout, ``decode_state_specs``): one parameter tree,
+    input (B, 1, D) and ``KVCache`` piece (B, S_max/M, Hkv, dh) per
+    position, position ``j``'s piece holding lines ``[j S_max/M, (j + 1)
+    S_max/M)``; ``positions`` ``None`` (every row at ``cache.index``) or
+    one (B,) cursor tensor per position.
+
+    The query heads and the new K/V line come from the column-split
+    ``wq`` / ``wk`` / ``wv``, their columns gathered whole over the row
+    (``all_gather_row``: ``q`` replicated over "model", as the reference's
+    hint has it; ``B H dh`` values a step). The new line, roped at the
+    cursor, is written only where a piece holds the cursor (each row's own
+    with per-row cursors; a row at or past the cache's end writes
+    nothing). Each position scores every head against its own lines,
+    ``flash_combine`` makes the softmax over the row's pieces, and the
+    row-split ``wo`` gives partial outputs that ``all_reduce`` adds. No
+    cache line leaves its position. Returns one output per position and
+    the pieces (written in place) with the cursor advanced."""
+    row = _mesh.tp_row()
+    M = len(row)
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    idx = caches[0].index
+    P = caches[0].k.shape[1]
+    if positions is None and not 0 <= idx < P * M:
+        raise IndexError(f"decode cursor {idx} outside a cache of {P * M} "
+                         "lines")
+    positions = positions or [None] * M
+    width = {"wq": H * dh, "wk": Hkv * dh, "wv": Hkv * dh}
+    tp_splits["flash-decoding"] += 1
+
+    def project(name):
+        cols = _mesh.each(lambda p, x: x @ p[name].to(x.dtype), ps, xs)
+        if cols[0].shape[-1] == width[name]:
+            return cols
+        return collectives.all_gather_row(cols, -1, row)
+
+    def partial(j, x, q, k_new, v_new, cache, pos):
+        dt = x.dtype
+        q = _split_heads(q, H, dh)
+        k_new = _split_heads(k_new, Hkv, dh)
+        v_new = _split_heads(v_new, Hkv, dh)
+        if use_rope:
+            at = (torch.full((1, 1), idx, device=x.device) if pos is None
+                  else pos[:, None])
+            q = layers.apply_rope(q, at, cfg.rope_theta)
+            k_new = layers.apply_rope(k_new, at, cfg.rope_theta)
+        write_line(cache.k, idx, pos, k_new[:, 0], j * P)
+        write_line(cache.v, idx, pos, v_new[:, 0], j * P)
+        # query heads grouped by the KV head they read, so the piece is
+        # not repeated to H heads: scores (B, Hkv, H / Hkv, 1, lines)
+        q = q.reshape(q.shape[0], 1, Hkv, cfg.q_per_kv, dh)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", q, cache.k.to(dt)) * (
+            1.0 / math.sqrt(dh))
+        mask = decode_mask(P, idx, pos, cfg.sliding_window, x.device, j * P)
+        return torch.where(mask[:, None], s.to(_F32), NEG)
+
+    scores = _mesh.each(partial, range(M), xs, project("wq"),
+                        project("wk"), project("wv"), caches, positions)
+    values = _mesh.each(lambda x, c: c.v.to(x.dtype), xs, caches)
+    ctx = flash_combine(scores, values, "bgrqk,bkgd->bqgrd", xs[0].dtype,
+                        row)
+    outs = _mesh.each(lambda o: o.reshape(o.shape[0], 1, H * dh), ctx)
+    return (row_split_wo(H * dh, ps, outs, row),
+            [c._replace(index=idx + 1) for c in caches])

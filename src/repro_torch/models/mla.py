@@ -16,7 +16,8 @@ import torch
 from ..distributed import collectives
 from ..distributed import mesh as _mesh
 from . import layers
-from .attention import NEG, decode_mask, write_rows
+from .attention import (NEG, decode_mask, flash_combine, write_line,
+                        write_rows)
 
 _F32 = torch.float32
 
@@ -110,8 +111,9 @@ def mla_apply(cfg, p, x, positions, causal: bool = True) -> torch.Tensor:
 
 
 # the splits ``mla_apply_tp`` took, one count a call: "whole layer",
-# "whole heads" or "through a head" (read and cleared by callers that must
-# know which ran)
+# "whole heads" or "through a head"; and "flash-decoding", one count an
+# ``mla_decode_tp`` call (read and cleared by callers that must know which
+# ran)
 tp_splits: collections.Counter = collections.Counter()
 
 
@@ -223,3 +225,91 @@ def mla_decode(cfg, p, x, cache: MLACache,
     out = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv)
     out = out.reshape(B, 1, H * dv) @ p["wo"].to(dt)
     return out, cache._replace(index=idx + 1)
+
+
+def mla_decode_tp(cfg, ps, xs, caches, positions=None):
+    """``mla_decode`` over the row of ``distributed.mesh.tp_row()`` with
+    the latent cache split by sequence over the row (the reference's
+    flash-decoding layout): one parameter tree, input (B, 1, D) and
+    ``MLACache`` piece (``c_kv`` (B, S_max/M, r), ``k_rope`` (B, S_max/M,
+    dr)) per position, position ``j``'s piece holding lines ``[j S_max/M,
+    (j + 1) S_max/M)``; ``positions`` as ``attention.attn_decode_tp``'s.
+
+    ``w_dkv``, ``w_krope`` and ``kv_norm`` are whole, so every position
+    computes the new latent line and the piece that holds the cursor
+    writes it. With ``wq``, ``w_uk``, ``w_uv`` and ``wo`` split into whole
+    heads, each position computes its heads' absorbed ``q_lat`` and roped
+    ``q_rope`` and ``all_gather_row`` gives every position all of them
+    (``q`` replicated over "model"). Each position scores every head
+    against its own latent lines, ``attention.flash_combine`` makes the
+    softmax over the pieces and their latent context, and each position
+    applies its heads' ``w_uv`` and rows of ``wo``; ``all_reduce`` adds
+    them. Leaves left whole give every position the whole layer; a split
+    through a head raises. Returns one output per position and the pieces
+    (written in place) with the cursor advanced."""
+    row = _mesh.tp_row()
+    M = len(row)
+    H = cfg.n_heads
+    dn, dr, dv, r = (cfg.qk_nope_dims, cfg.qk_rope_dims, cfg.v_head_dim,
+                     cfg.kv_lora)
+    idx = caches[0].index
+    P = caches[0].c_kv.shape[1]
+    if positions is None and not 0 <= idx < P * M:
+        raise IndexError(f"decode cursor {idx} outside a cache of {P * M} "
+                         "lines")
+    positions = positions or [None] * M
+    hq = ps[0]["w_uk"].shape[-1] // dn
+    split = hq != H
+    if split and not (H % M == 0 and hq == H // M
+                      and ps[0]["wq"].shape[-1] == hq * (dn + dr)
+                      and ps[0]["w_uv"].shape[-1] == hq * dv
+                      and ps[0]["wo"].shape[0] == hq * dv):
+        raise NotImplementedError(
+            f"MLA decode on a row of {M} needs whole heads a position "
+            f"({H} heads)")
+    local = cfg.replace(n_heads=hq, n_kv_heads=hq)
+    tp_splits["flash-decoding"] += 1
+
+    def queries(j, p, x, cache, pos):
+        dt = x.dtype
+        at = (torch.full((1,), idx, device=x.device) if pos is None
+              else pos[:, None])
+        q_nope, q_rope = _project_q(local, p, x, at)
+        c_new, kr_new = latent_kv(cfg, p, x, at)
+        write_line(cache.c_kv, idx, pos, c_new[:, 0], j * P)
+        write_line(cache.k_rope, idx, pos, kr_new[:, 0], j * P)
+        w_uk = p["w_uk"].to(dt).reshape(r, hq, dn)
+        return torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk), q_rope
+
+    qs = _mesh.each(queries, range(M), ps, xs, caches, positions)
+    q_lat, q_rope = [q for q, _ in qs], [q for _, q in qs]
+    if split:
+        q_lat = collectives.all_gather_row(q_lat, 2, row)
+        q_rope = collectives.all_gather_row(q_rope, 2, row)
+
+    def partial(j, x, q_lat, q_rope, cache, pos):
+        dt = x.dtype
+        s = (torch.einsum("bqhr,bkr->bhqk", q_lat, cache.c_kv.to(dt))
+             + torch.einsum("bqhd,bkd->bhqk", q_rope, cache.k_rope.to(dt))
+             ) * (1.0 / math.sqrt(dn + dr))
+        return torch.where(decode_mask(P, idx, pos, 0, x.device, j * P),
+                           s.to(_F32), NEG)
+
+    scores = _mesh.each(partial, range(M), xs, q_lat, q_rope, caches,
+                        positions)
+    ctx = flash_combine(scores, _mesh.each(lambda x, c: c.c_kv.to(x.dtype),
+                                           xs, caches),
+                        "bhqk,bkr->bqhr", xs[0].dtype, row)
+
+    def output(j, p, c):
+        dt = c.dtype
+        if split:
+            c = c.narrow(2, j * hq, hq)
+        w_uv = p["w_uv"].to(dt).reshape(r, hq, dv)
+        out = torch.einsum("bqhr,rhd->bqhd", c, w_uv)
+        return out.reshape(c.shape[0], 1, hq * dv) @ p["wo"].to(dt)
+
+    outs = _mesh.each(output, range(M), ps, ctx)
+    if split:
+        outs = collectives.all_reduce(outs, row)
+    return outs, [c._replace(index=idx + 1) for c in caches]

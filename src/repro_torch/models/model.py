@@ -14,6 +14,15 @@ device when each row keeps its own (slot-swap continuous batching:
 ``prefill(state=, slot=)``). The reference stacks its caches on a leading L
 axis, so its batch axis is 1; here each cache is a layer's own, and its
 batch axis is 0.
+
+``prefill_tp`` and ``decode_step_tp`` are ``prefill`` and ``decode_step``
+on a tensor-parallel row (``distributed.mesh.tensor_parallel``) for the
+configs ``transformer.tp_covers``, with the reference's flash-decoding
+cache layout: one parameter tree (the position's "model" pieces) and one
+``DecodeState`` per position of the row, whose caches hold the lines of
+the position's sequence piece (``decode_state_specs`` splits the cache's
+sequence over "model"); the encoder's cross K/V (whisper), which that
+layout leaves whole over "model", lives in the first position's state.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed import collectives
+from ..distributed import mesh as _mesh
 from . import attention, layers, mla, rwkv, ssm, transformer
 from .transformer import apply_channel, encode
 
@@ -102,19 +113,26 @@ def _mixer_decode(cfg, bp, x, cache, positions=None):
     raise ValueError(cfg.mixer)
 
 
-def _cross_decode(cfg, bp, x, k, v):
-    """Cross-attention against precomputed encoder K/V (whisper decode)."""
-    dt = x.dtype
-    B = x.shape[0]
+def _cross_context(cfg, q, k, v):
+    """The cross-attention context (B, 1, H dh) of projected queries q
+    (B, 1, H dh) against the encoder's K/V (B, S_enc, Hkv, dh)."""
+    dt = q.dtype
+    B = q.shape[0]
     H, dh = cfg.n_heads, cfg.head_dim
-    p = bp["xattn"]
-    q = (x @ p["wq"].to(dt)).reshape(B, 1, H, dh)
+    q = q.reshape(B, 1, H, dh)
     kk = attention._repeat_kv(k.to(dt), cfg.q_per_kv)
     vv = attention._repeat_kv(v.to(dt), cfg.q_per_kv)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(dh)
     probs = torch.softmax(s.to(_F32), -1).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
-    return out.reshape(B, 1, H * dh) @ p["wo"].to(dt)
+    return out.reshape(B, 1, H * dh)
+
+
+def _cross_decode(cfg, bp, x, k, v):
+    """Cross-attention against precomputed encoder K/V (whisper decode)."""
+    p = bp["xattn"]
+    return _cross_context(cfg, x @ p["wq"].to(x.dtype), k, v) @ \
+        p["wo"].to(x.dtype)
 
 
 def decode_step(cfg, params, token: torch.Tensor,
@@ -310,3 +328,229 @@ def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,
     logits = layers.logits_from_hidden(cfg, params, x[:, -1:])
     return logits, DecodeState(layer=layer_new, shared=shared, cross=cross,
                                step=S)
+
+
+# ------------------------------------------------------- on a TP row of pieces
+def _lines(j: int, P: int, S: int) -> Tuple[int, int]:
+    """The first of the ``S`` prompt lines that position ``j``'s piece of
+    ``P`` lines holds, and how many it holds (``narrow``'s arguments)."""
+    return min(j * P, S), max(0, min(P, S - j * P))
+
+
+def _fill_attn_tp(cfg, pas, xs, caches, positions):
+    """``_fill_attn`` on the row: each position's piece gets the prompt's
+    K (roped) and V of its lines. Each position projects its columns of
+    ``wk`` / ``wv`` (whole KV heads or not) over every line, and
+    ``all_to_all`` exchanges columns for lines, so that each position ends
+    with every KV head of its own lines; a leaf left whole gives each
+    position the whole projection, narrowed to its lines."""
+    row = _mesh.tp_row()
+    M = len(row)
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    B, S = xs[0].shape[:2]
+    P = caches[0].k.shape[1]
+    for name in ("k", "v"):
+        cols = _mesh.each(lambda p, x: x @ p["w" + name].to(x.dtype), pas,
+                          xs)
+        if cols[0].shape[-1] == Hkv * dh:
+            mine = [c.narrow(1, *_lines(j, P, S)) for j, c in enumerate(cols)]
+        else:
+            got = collectives.all_to_all(collectives.shard_array([
+                [c.narrow(1, *_lines(m, P, S)) for m in range(M)]
+                for c in cols]), 0)                 # (M, B, lines, cols/M)
+            mine = [g.permute(1, 2, 0, 3).reshape(B, g.shape[2], Hkv * dh)
+                    for g in got]
+
+        def fill(j, c, t, pos):
+            first, n = _lines(j, P, S)
+            t = t.reshape(B, n, Hkv, dh)
+            if name == "k" and cfg.use_rope:
+                t = layers.apply_rope(t, pos.narrow(0, first, n)[None],
+                                      cfg.rope_theta)
+            getattr(c, name)[:, :n] = t.to(getattr(c, name).dtype)
+
+        _mesh.each(fill, range(M), caches, mine, positions)
+    return [c._replace(index=S) for c in caches]
+
+
+def _fill_latent_tp(cfg, pms, xs, caches, positions):
+    """The MLA latents of each position's lines into its piece: ``w_dkv``,
+    ``w_krope`` and ``kv_norm`` are whole at every position."""
+    P = caches[0].c_kv.shape[1]
+    S = xs[0].shape[1]
+
+    def fill(j, p, x, c, pos):
+        first, n = _lines(j, P, S)
+        c_kv, k_rope = mla.latent_kv(cfg, p, x.narrow(1, first, n),
+                                     pos.narrow(0, first, n))
+        c.c_kv[:, :n] = c_kv.to(c.c_kv.dtype)
+        c.k_rope[:, :n] = k_rope.to(c.k_rope.dtype)
+        return c._replace(index=S)
+
+    return _mesh.each(fill, range(len(caches)), pms, xs, caches, positions)
+
+
+def _cross_kv_tp(cfg, ps, enc_outs):
+    """The encoder's K and V for every layer, (L, B, S_enc, Hkv, dh) each,
+    whole at the row's first position (``decode_state_specs`` leaves them
+    whole over "model"): each position projects its columns, gathered
+    there."""
+    row = _mesh.tp_row()
+    B, S_enc = enc_outs[0].shape[:2]
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    out = []
+    for name in ("wk", "wv"):
+        per_layer = []
+        for i in range(cfg.n_layers):
+            cols = _mesh.each(lambda p, e: e @ p["blocks"]["xattn"][name][i]
+                              .to(e.dtype), ps, enc_outs)
+            whole = cols[0] if cols[0].shape[-1] == Hkv * dh else \
+                collectives.all_gather(collectives.shard_array(cols), -1,
+                                       row[0])
+            per_layer.append(whole.reshape(B, S_enc, Hkv, dh))
+        with _mesh.at(row[0]):
+            out.append(torch.stack(per_layer))
+    return out
+
+
+def prefill_tp(cfg, ps, tokens, max_seq: int, vision_embeds=None,
+               audio_frames=None):
+    """``prefill`` on the row of ``mesh.tp_row()``: ``ps`` one parameter
+    tree per position, the inputs one tensor per position (the batch
+    shard's rows). The prompt runs as ``transformer.forward_tp`` runs it
+    (``attn_apply_tp`` / ``mla_apply_tp``, ``apply_channel_tp``); each
+    position's cache piece holds lines ``[j P, (j + 1) P)`` of the
+    ``max_seq``-line cache, ``P = max_seq / M`` (``_fill_attn_tp``,
+    ``_fill_latent_tp``). Returns each position's last-position logits of
+    its range of the vocabulary (fp32, (B, 1, V/M); the whole vocabulary
+    where the head is whole) and one ``DecodeState`` per position."""
+    row = _mesh.tp_row()
+    M = len(row)
+    if max_seq % M:
+        raise ValueError(f"a cache of {max_seq} lines does not split over "
+                         f"a row of {M}")
+    P = max_seq // M
+    dt = layers.dtype_of(cfg.compute_dtype)
+    xs = transformer.embed_tp(cfg, ps, tokens, vision_embeds)
+    B, S = xs[0].shape[:2]
+    if S > max_seq:
+        raise ValueError(f"a prompt of {S} tokens into a cache of "
+                         f"{max_seq} lines")
+    positions = transformer._positions_tp(xs)
+    caches = _mesh.each(lambda x: [_layer_cache(cfg, B, P, dt, x.device)
+                                   for _ in range(cfg.n_layers)], xs)
+    cross = enc_outs = None
+    if cfg.enc_dec:
+        enc_outs = transformer.encode_tp(cfg, ps, audio_frames)
+        xs = _mesh.each(lambda x: x + layers.sinusoidal_positions(
+            S, cfg.d_model, x.device).to(dt)[None], xs)
+        cross = (enc_outs[0], *_cross_kv_tp(cfg, ps, enc_outs))
+    blocks = [p["blocks"] for p in ps]
+    norm = transformer._norm_tp
+    for i in range(cfg.n_layers):
+        bps = transformer._layer_tp(blocks, i)
+        h_in = norm(cfg, xs, [b["norm1"] for b in bps])
+        mine = [c[i] for c in caches]
+        if cfg.mla:
+            pms = [b["mla"] for b in bps]
+            hs = mla.mla_apply_tp(cfg, pms, h_in, positions)
+            mine = _fill_latent_tp(cfg, pms, h_in, mine, positions)
+        else:
+            pas = [b["attn"] for b in bps]
+            hs = attention.attn_apply_tp(cfg, pas, h_in, positions,
+                                         use_rope=cfg.use_rope)
+            mine = _fill_attn_tp(cfg, pas, h_in, mine, positions)
+        for c, m in zip(caches, mine):
+            c[i] = m
+        xs = transformer._add(xs, hs)
+        if cross is not None:
+            xs = transformer._add(xs, attention.attn_apply_tp(
+                cfg, [b["xattn"] for b in bps],
+                norm(cfg, xs, [b["norm_x"] for b in bps]), positions,
+                causal=False, kv_source=enc_outs, use_rope=False))
+        hs, _ = transformer.apply_channel_tp(
+            cfg, ps, bps, norm(cfg, xs, [b["norm2"] for b in bps]), i)
+        xs = transformer._add(xs, hs)
+    xs = norm(cfg, [x[:, -1:] for x in xs], [p["final_norm"] for p in ps])
+    logits = layers.logits_from_hidden_tp(cfg, ps, xs)
+    return logits, [DecodeState(layer=c, shared=None,
+                                cross=cross if j == 0 else None, step=S)
+                    for j, c in enumerate(caches)]
+
+
+def _mixer_decode_tp(cfg, bps, xs, caches, positions):
+    if cfg.mla:
+        return mla.mla_decode_tp(cfg, [b["mla"] for b in bps], xs, caches,
+                                 positions)
+    return attention.attn_decode_tp(cfg, [b["attn"] for b in bps], xs,
+                                    caches, cfg.use_rope, positions)
+
+
+def _cross_decode_tp(cfg, bps, xs, k, v):
+    """``_cross_decode`` on the row against the encoder's K/V of one layer,
+    whole at the row's first position: each position's query heads from
+    its columns of ``wq``, gathered there (``B H dh`` values); the context
+    computed there and sent to every position (``broadcast_row``, the same
+    size); each position's rows of ``wo``, added by ``all_reduce``. The
+    encoder's K/V never move."""
+    row = _mesh.tp_row()
+    H, dh = cfg.n_heads, cfg.head_dim
+    pxs = [b["xattn"] for b in bps]
+    qs = _mesh.each(lambda p, x: x @ p["wq"].to(x.dtype), pxs, xs)
+    q = qs[0] if qs[0].shape[-1] == H * dh else collectives.all_gather(
+        collectives.shard_array(qs), -1, row[0])
+    with _mesh.at(row[0]):
+        ctx = _cross_context(cfg, q, k, v)
+    return attention.row_split_wo(H * dh, pxs,
+                                  collectives.broadcast_row(ctx, row), row)
+
+
+def decode_step_tp(cfg, ps, tokens, states):
+    """``decode_step`` on the row of ``mesh.tp_row()``: ``ps`` one
+    parameter tree per position, ``tokens`` one (B, 1) per position (the
+    batch shard's rows), ``states`` one ``DecodeState`` per position
+    (``prefill_tp``'s: the position's cache pieces; a per-row ``step`` a
+    (B,) tensor at each position). Every attention layer runs
+    ``attention.attn_decode_tp`` / ``mla.mla_decode_tp`` against the
+    pieces, written in place, the channel ``apply_channel_tp``, whisper's
+    cross-attention ``_cross_decode_tp``. Returns each position's logits
+    of its range of the vocabulary (fp32, (B, 1, V/M)) and the states
+    advanced by one position."""
+    dt = layers.dtype_of(cfg.compute_dtype)
+    per_row = isinstance(states[0].step, torch.Tensor)
+    positions = [s.step for s in states] if per_row else None
+    xs = transformer.embed_tp(cfg, ps, tokens)
+    if cfg.enc_dec:
+        def add_position(x, s):
+            pos_emb = layers.sinusoidal_positions(cfg.max_seq, cfg.d_model,
+                                                  x.device)
+            if per_row:
+                rows = pos_emb[s.step.clamp(max=cfg.max_seq - 1)]
+                return x + rows[:, None].to(dt)
+            return x + pos_emb[s.step:s.step + 1].to(dt)[None]
+        xs = _mesh.each(add_position, xs, states)
+    blocks = [p["blocks"] for p in ps]
+    norm = transformer._norm_tp
+    layer_new = []
+    for i in range(cfg.n_layers):
+        bps = transformer._layer_tp(blocks, i)
+        hs, caches = _mixer_decode_tp(
+            cfg, bps, norm(cfg, xs, [b["norm1"] for b in bps]),
+            [s.layer[i] for s in states], positions)
+        xs = transformer._add(xs, hs)
+        if states[0].cross is not None:
+            _, ck, cv = states[0].cross
+            xs = transformer._add(xs, _cross_decode_tp(
+                cfg, bps, norm(cfg, xs, [b["norm_x"] for b in bps]), ck[i],
+                cv[i]))
+        hs, _ = transformer.apply_channel_tp(
+            cfg, ps, bps, norm(cfg, xs, [b["norm2"] for b in bps]), i)
+        xs = transformer._add(xs, hs)
+        layer_new.append(caches)
+    xs = norm(cfg, xs, [p["final_norm"] for p in ps])
+    logits = layers.logits_from_hidden_tp(cfg, ps, xs)
+    return logits, _mesh.each(
+        lambda j, s: DecodeState(layer=[c[j] for c in layer_new],
+                                 shared=None, cross=s.cross,
+                                 step=s.step + 1),
+        range(len(states)), states)
