@@ -1246,7 +1246,10 @@ def phase_distributed(dev: dict) -> int:
 
 
 # ------------------------------------------------------------ planner
-RECONCILE_REPS = 2
+# each reconcile row is the median of this many host-timed runs; measured by
+# this phase on an NVIDIA H100 80GB HBM3 at 700 W, 5 cost 35.7 s more than
+# 2, and 3 cost 15.0 s more (PERF.md §6)
+RECONCILE_REPS = 3
 CHUNK = 131072   # points per chunk of the chunked runs at PollenUS_Hr-Lb
 # strategies a (2, 2) mesh can probe: pd_xyt and hybrid need a third axis
 TWO_D = ("dr", "dd", "pd", "pd_xt", "dd_lpt")
@@ -3050,6 +3053,10 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
 
 # ------------------------------------------------------------ lm_remat
 REMAT_ARCH = "smollm-360m"
+# (b) and (c) run (and the dry run counts) smollm-360m at its widths on 16
+# of its 32 blocks: the cut that pays for the mamba2 / rwkv6 serving checks
+# (e) and the planner's third reconcile repeat in the script's time cap
+REMAT_LAYERS = 16
 REMAT_SHORT = (1, 1024)      # (b): both steps fit the card
 # (c): the reference's train_4k row length; B the largest of 4, 2, 1 whose
 # dry-run peak is under the card's capacity (the dry run's 24.9 GB at 4 x
@@ -3073,6 +3080,17 @@ NEMO_LAYERS = 2
 NEMO_SERVE = (4, 512)
 NEMO_CACHE = 2048
 MOE_DECODE_STEPS = 8
+# (e)'s checks, the mamba2 and rwkv6 configs on rows (budget 15 s
+# together): the reduced ones, 8 x 32 prompts + 8 steps on (2, 2) and
+# (4, 2) and one prompt with the cache over (data, model) on (2, 2);
+# rwkv6-3b at its widths on 2 layers over (1, 16), its 40 heads straddling
+# the 16 positions; zamba2-7b at its widths on 6 layers (one shared site)
+# over (2, 2)
+RECURRENT_STEPS = 8
+RWKV_LAYERS = 2
+RWKV_MESH = (1, 16)
+ZAMBA_LAYERS = 6
+WIDE_PREFILL = (2, 64)
 
 
 # the one-device train steps the dry run accounts for ``lm_remat``: (b) at
@@ -3085,8 +3103,9 @@ REMAT_CELLS = [("short_remat", REMAT_SHORT, True),
 
 
 def dryrun_figure(cell) -> dict:
-    """``launch.dryrun.account`` of the one-device train step of full
-    ``smollm-360m`` on a batch of ``cell``'s shape: fake tensors on the
+    """``launch.dryrun.account`` of the one-device train step of
+    ``smollm-360m`` on ``REMAT_LAYERS`` blocks on a batch of ``cell``'s
+    shape: fake tensors on the
     host, no card touched (in a worker process, so that the card's phases
     do not share this one's interpreter with it, or in this process with
     ``--dry-run-in-process``)."""
@@ -3096,7 +3115,7 @@ def dryrun_figure(cell) -> dict:
     from repro_torch.train import optimizer as opt
 
     tag, (B, S), remat = cell
-    cfg = ARCHS[REMAT_ARCH].replace(remat=remat)
+    cfg = ARCHS[REMAT_ARCH].replace(remat=remat, n_layers=REMAT_LAYERS)
     params = specs.param_specs_abstract(cfg)
     state = opt.OptState(mu=params, nu=params, step=torch.empty(
         (), dtype=torch.int32, device="meta"))
@@ -3194,7 +3213,8 @@ def remat_cost(cfg, ocfg, params, state, b, rounds: int) -> dict:
 
 
 def remat_full_width(figures: dict) -> dict:
-    """(b) full ``smollm-360m`` at 1 x 1024: one step with remat and one
+    """(b) ``smollm-360m`` at its widths on ``REMAT_LAYERS`` blocks at 1 x
+    1024: one step with remat and one
     without, their losses and gradients compared, each step's peak beside
     the dry run's count; remat's cost timed there and at ``lm_train``'s
     8 x 256 batch (``remat_cost``); (c) at B x 4096 with remat: 5 steps, ms per step,
@@ -3215,7 +3235,7 @@ def remat_full_width(figures: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    cfg = ARCHS[REMAT_ARCH]
+    cfg = ARCHS[REMAT_ARCH].replace(n_layers=REMAT_LAYERS)
     assert cfg.remat and cfg.scan_layers
     ocfg = OptimizerConfig()
     params = init_params(cfg, device="cuda", seed=0)
@@ -3305,6 +3325,8 @@ def remat_full_width(figures: dict) -> dict:
     long_["ok"] = (long_["ok"] and first_equal and fits
                    and all(np.isfinite(losses)))
     return {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+            "reduced": {"n_layers": [ARCHS[REMAT_ARCH].n_layers,
+                                     REMAT_LAYERS]},
             "held_before_bytes": held, "short": short,
             "remat_cost": cost, "long": long_,
             "ok": short["ok"] and long_["ok"],
@@ -3423,6 +3445,74 @@ def greedy_against_one_device(cfg, params, p_sh, mesh, toks, max_seq: int,
             **out}
 
 
+def recurrent_serving_on_card() -> dict:
+    """(e) The mamba2 and rwkv6 configs served on rows (``launch.dryrun``'s
+    ``sharded_prefill`` / ``sharded_decode``; ``models/ssm.py::
+    ssm_apply_tp`` / ``ssm_decode_tp``, ``models/rwkv.py``'s ``*_tp``,
+    zamba2's shared sites through ``attention.attn_decode_tp``) against
+    the one-device path, fp32: each call's logits within ``LM_TOL``,
+    greedy tokens equal, every call on the rows. Reduced zamba2 and rwkv6:
+    8 prompts of 32 and ``RECURRENT_STEPS`` steps on (2, 2) and (4, 2),
+    and one prompt on (2, 2), whose shared sites' cache
+    ``decode_state_specs`` splits over ``(data, model)`` (``long_500k``'s
+    layout). ``rwkv6-3b`` at its widths on ``RWKV_LAYERS`` layers over
+    ``RWKV_MESH`` (40 heads of 64 on 16 positions: 2.5 heads a position,
+    as on the production mesh) and ``zamba2-7b`` at its widths on
+    ``ZAMBA_LAYERS`` layers (one shared site) over (2, 2): 2 prompts of
+    64 and ``RECURRENT_STEPS`` steps."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    rows = []
+
+    def check(cfg, params, shape, toks, what):
+        mesh = card_mesh(shape, ("data", "model"))
+        p_sh = sh.shard_tree(params, sh.param_specs(
+            params, mesh, fsdp=dryrun._serve_fsdp(cfg, mesh)), mesh)
+        clear_serve_paths()
+        t = time.perf_counter()
+        run = greedy_against_one_device(
+            cfg, params, p_sh, mesh, toks,
+            toks.shape[1] + RECURRENT_STEPS, RECURRENT_STEPS)
+        del p_sh
+        paths = serve_paths_ran()
+        shards = mesh.shape["data"] if toks.shape[0] > 1 else 1
+        rows.append({
+            "arch": cfg.name, "what": what, "layers": cfg.n_layers,
+            "mesh": mesh.shape, "prompts": list(toks.shape),
+            "decode_steps": RECURRENT_STEPS, **run, **paths,
+            "seconds": time.perf_counter() - t,
+            "ok": run["tokens_equal"] and run["worst_err_over_allowed"]
+            <= 1.0 and paths["serve_paths"] == {"row": 1 + RECURRENT_STEPS}
+            and paths["attention_flash_decoding"]
+            == RECURRENT_STEPS * cfg.attn_sites * shards})
+
+    for name in ("zamba2-7b", "rwkv6-3b"):
+        cfg = reduced(ARCHS[name])
+        params = init_params(cfg, device="cuda", seed=0)
+        toks = lm_inputs(cfg, *MOE_PREFILL, seed=6)[0].cuda()
+        check(cfg, params, (2, 2), toks, "reduced")
+        check(cfg, params, (4, 2), toks, "reduced")
+        check(cfg, params, (2, 2), toks[:1], "reduced, one prompt" + (
+            ": the shared sites' cache over (data, model)"
+            if cfg.attn_sites else ""))
+        del params
+    for name, layers_, shape in (("rwkv6-3b", RWKV_LAYERS, RWKV_MESH),
+                                 ("zamba2-7b", ZAMBA_LAYERS, (2, 2))):
+        cfg = ARCHS[name].replace(n_layers=layers_, compute_dtype="float32")
+        params = init_params(cfg, device="cuda", seed=0)
+        check(cfg, params, shape,
+              lm_inputs(cfg, *WIDE_PREFILL, seed=7)[0].cuda(),
+              f"published widths, {layers_} layers")
+        del params
+        torch.cuda.empty_cache()
+    return {"rows": rows, "ok": all(r["ok"] for r in rows),
+            "seconds": time.perf_counter() - t0}
+
+
 def sharded_serving_on_card() -> dict:
     """(d) The dry run's sharded prefill and decode (``launch.dryrun``'s
     ``sharded_prefill`` / ``sharded_decode``) on meshes of the one card
@@ -3440,7 +3530,7 @@ def sharded_serving_on_card() -> dict:
     ``dbrx-132b`` (the a2a in the rows) under the hint mesh: prefill on
     (2, 2) and (4, 2), and on (2, 2) ``MOE_DECODE_STEPS`` decode steps,
     against the one-device path under the same hint mesh, routing equal
-    at every call."""
+    at every call. Then (e), ``recurrent_serving_on_card``."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import dryrun
@@ -3522,11 +3612,13 @@ def sharded_serving_on_card() -> dict:
                 and run["worst_err_over_allowed"] <= 1.0
                 and paths["serve_paths"] == {"row": 1 + steps}})
         del mp
+    moe_seconds = time.perf_counter() - t2
+    recurrent = recurrent_serving_on_card()
     return {"smollm": smollm, "nemo": nemo, "moe": moe_rows,
-            "moe_seconds": time.perf_counter() - t2,
-            "new_checks_seconds": time.perf_counter() - t1,
+            "moe_seconds": moe_seconds, "recurrent": recurrent,
+            "new_checks_seconds": recurrent["seconds"],
             "ok": smollm["ok"] and nemo["ok"]
-            and all(r["ok"] for r in moe_rows),
+            and all(r["ok"] for r in moe_rows) and recurrent["ok"],
             "seconds": time.perf_counter() - t0}
 
 
@@ -3538,7 +3630,8 @@ def phase_lm_remat(dev: dict, pending=None) -> None:
     the host: in worker processes, ``pending`` being
     ``start_dryrun_figures()``'s, or with ``pending=None`` here, after
     (a)), remat's cost timed in this run, (d) the dry run's sharded prefill
-    and decode on meshes of the card. One JSON line each."""
+    and decode on meshes of the card, with (e) the mamba2 and rwkv6
+    configs' rows. One JSON line each."""
     t0 = time.perf_counter()
     a = remat_reduced_on_card()
     emit("lm_remat.reduced", rows=a, ok=all(r["ok"] for r in a))

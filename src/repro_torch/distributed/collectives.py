@@ -12,7 +12,8 @@ the parameter placement of ``sharding`` and the compressed gradient sum of
 ``train.grad_compress``; ``all_reduce``, ``pmax_row`` and ``all_gather_row``
 (a copy of the result on every member of a row of positions) the tensor
 parallel layers, ``broadcast_row`` the row decode's one-member results,
-and ``reduce_scatter`` the tensor-parallel step's gradients. All are built
+``exchange`` (an all-to-all of uneven parts) the row's column trades, and
+``reduce_scatter`` the tensor-parallel step's gradients. All are built
 of ``torch`` ops that autograd differentiates (``.to``, indexing,
 ``torch.cat``, ``torch.stack``, adds).
 
@@ -235,17 +236,13 @@ def all_to_all(send: np.ndarray, dim: int) -> np.ndarray:
     ``split_axis=0, concat_axis=0, tiled=False``): along that axis, shard
     ``j``'s tensor has a leading axis of the group's size, and shard ``m``
     receives ``stack_j(send[j][m])`` on its own device. One group per
-    position of the other array axes. A shard may send a list of one
-    tensor per member in place of the tensor: the parts for one receiver
-    must then agree in shape, the parts for two receivers need not."""
+    position of the other array axes."""
     _call("all-to-all")
     out = np.empty(send.shape, dtype=object)
     n = send.shape[dim]
     for idx in np.ndindex(send.shape):
         m = idx[dim]
-        own = send[idx]
-        dev = _mesh.device_of(own if isinstance(own, torch.Tensor)
-                              else own[m])
+        dev = _mesh.device_of(send[idx])
         row = []
         for j in range(n):
             src = list(idx)
@@ -253,6 +250,18 @@ def all_to_all(send: np.ndarray, dim: int) -> np.ndarray:
             row.append(_move(send[tuple(src)][m], dev, "all-to-all"))
         out[idx] = torch.stack(row)
     return out
+
+
+def exchange(send, devices) -> list:
+    """An all-to-all of uneven parts: ``send[i][j]`` what sender ``i``
+    sends to ``devices[j]`` (``None``: nothing), moved there. Senders and
+    receivers need not be the same members, nor as many (a row sending its
+    columns to every position that holds a piece of a cache). Returns, per
+    receiver, the parts it got in the senders' order; a part that is
+    already where it goes is not moved. Counted as ``all-to-all``."""
+    _call("all-to-all")
+    return [[_move(s[j], d, "all-to-all") for s in send if s[j] is not None]
+            for j, d in enumerate(devices)]
 
 
 def ppermute(bands: np.ndarray, devices: np.ndarray, dim: int,

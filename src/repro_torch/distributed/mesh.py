@@ -21,6 +21,9 @@ gives it to the layers that split their work over it. ``each`` runs a
 function once per position of the row, at that position (``at``), on the
 members of per-position lists: the lockstep in which one controller runs
 the row's SPMD programs, with the collectives between the calls.
+``cache_row()`` gives the positions that hold the row's cache lines: the
+row, or more positions than the row where a layout splits a cache's
+sequence over the batch axes too (``tensor_parallel(row, lines=)``).
 """
 from __future__ import annotations
 
@@ -247,16 +250,25 @@ def at(device):
 # ------------------------------------------------------ tensor parallelism
 _TP_ROW: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_tp_row", default=None)
+_TP_LINES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_tp_lines", default=None)
 
 
 @contextlib.contextmanager
-def tensor_parallel(row: Sequence[torch.device]):
+def tensor_parallel(row: Sequence[torch.device],
+                    lines: Optional[Sequence[torch.device]] = None):
     """While open, ``row`` (a batch shard's positions over "model", in
-    order) is the row the tensor-parallel layers split their work over."""
+    order) is the row the tensor-parallel layers split their work over.
+    ``lines``: the positions that hold the pieces of the row's caches, in
+    sequence order, where they are more than the row (a batch that is not
+    split, whose caches' sequence the layout splits over the batch axes
+    and "model": ``long_500k``); the row holds the first pieces."""
     tok = _TP_ROW.set(tuple(row))
+    tok_lines = _TP_LINES.set(tuple(lines) if lines is not None else None)
     try:
         yield
     finally:
+        _TP_LINES.reset(tok_lines)
         _TP_ROW.reset(tok)
 
 
@@ -265,11 +277,17 @@ def tp_row() -> Optional[Tuple[torch.device, ...]]:
     return _TP_ROW.get()
 
 
-def each(fn: Callable, *per_position) -> List:
+def cache_row() -> Optional[Tuple[torch.device, ...]]:
+    """The positions that hold the row's cache pieces, in sequence order:
+    ``tensor_parallel``'s ``lines``, else the row."""
+    return _TP_LINES.get() or _TP_ROW.get()
+
+
+def each(fn: Callable, *per_position, over=None) -> List:
     """``[fn(*(a[j] for a in per_position)) for j]`` over the positions of
-    ``tp_row()``, each call at its position (``at``)."""
+    ``tp_row()`` (or of ``over``), each call at its position (``at``)."""
     out = []
-    for j, dev in enumerate(_TP_ROW.get()):
+    for j, dev in enumerate(over if over is not None else _TP_ROW.get()):
         with at(dev):
             out.append(fn(*(a[j] for a in per_position)))
     return out

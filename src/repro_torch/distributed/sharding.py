@@ -407,7 +407,38 @@ def batch_block(leaf: Sharded, axes, k: int, n: int,
     return gather(Sharded(sub, spec, leaf.mesh, (), leaf.dtype), device)
 
 
-def row_block(leaf: Sharded, axes, k: int, n: int, row) -> list:
+def _over_lines(spec: P, mesh: Mesh) -> bool:
+    """Does ``spec`` split a dim over the batch axes and "model" jointly:
+    a cache's sequence where the batch is not split (``long_500k``'s
+    layout, ``decode_state_specs``)?"""
+    want = batch_axes(mesh) + (TP,)
+    return len(want) > 1 and any(P.axes_of(e) == want for e in spec)
+
+
+def _spec_leaves(specs):
+    if isinstance(specs, P):
+        yield specs
+    elif isinstance(specs, dict):
+        for v in specs.values():
+            yield from _spec_leaves(v)
+    elif isinstance(specs, (list, tuple)):
+        for v in specs:
+            yield from _spec_leaves(v)
+
+
+def cache_row(specs, mesh: Mesh, axes, row) -> tuple:
+    """The positions that hold batch shard ``row``'s cache pieces, in
+    sequence order (``mesh.tensor_parallel``'s ``lines``): the row itself;
+    or, where the batch is not split (no batch ``axes``) and ``specs``
+    split a cache's sequence over the batch axes and "model", every
+    position of those axes, row-major (the row, at batch index 0, first)."""
+    if not axes and any(_over_lines(s, mesh) for s in _spec_leaves(specs)):
+        return tuple(np.asarray(mesh.devices_of(batch_axes(mesh) + (TP,)),
+                                dtype=object).reshape(-1))
+    return tuple(row)
+
+
+def row_block(leaf: Sharded, axes, k: int, n: int, row, lines=None) -> list:
     """Batch shard ``k``'s block of a ``Sharded`` leaf at each position of
     its row over "model" (``row``: the block's positions in "model"
     order), nothing gathered: where the spec splits a dim over "model"
@@ -415,62 +446,90 @@ def row_block(leaf: Sharded, axes, k: int, n: int, row) -> list:
     own piece, the tensor itself (a decode step writes it in place); a
     leaf split over the batch only, its block's piece at the row's first
     position, where the replicas sit (``None`` at the others); a leaf
-    split over nothing (a per-row ``step``), its block's ``n``-th of the
-    rows, copied to every position."""
+    split over nothing, its block's ``n``-th of the rows: copied to every
+    position where it is a per-row cursor (1-d), else at the row's first
+    position as a leaf split over the batch only.
+
+    ``lines`` (``cache_row``, when longer than the row): a batch that is
+    not split, whose caches' sequence is split over the batch axes and
+    "model"; such a leaf gives its piece at every position of ``lines``,
+    and every other list is padded with ``None`` (a cursor copied) to
+    their length."""
     M = len(row)
+    out = lines or row
     block = _block_pieces(leaf, axes, k)
     if block is None:
-        if leaf.spec.mesh_axes():
-            raise NotImplementedError(
-                f"a leaf of spec {leaf.spec} on a row: not split over the "
-                f"batch axes {tuple(axes)}")
-        t = leaf.pieces.reshape(()).item()
-        rows = t.shape[0] // n
-        return [t.narrow(0, k * rows, rows).to(d) for d in row]
+        if not leaf.spec.mesh_axes():
+            t = leaf.pieces.reshape(()).item()
+            rows = t.shape[0] // n
+            t = t.narrow(0, k * rows, rows)
+            if t.ndim == 1:
+                return [t.to(d) for d in out]
+            return [t.to(row[0])] + [None] * (len(out) - 1)
+        if not axes and n == 1 and _over_lines(leaf.spec, leaf.mesh):
+            pieces = list(leaf.pieces.reshape(-1))
+            if len(pieces) != len(out):
+                raise ValueError(f"{len(pieces)} pieces of spec {leaf.spec} "
+                                 f"on {len(out)} positions of lines")
+            return pieces
+        raise NotImplementedError(
+            f"a leaf of spec {leaf.spec} on a row: not split over the "
+            f"batch axes {tuple(axes)}")
     sub, spec = block
     rest = spec.mesh_axes()
+    pad = [None] * (len(out) - M)
     if not rest:
-        return [sub.reshape(()).item()] + [None] * (M - 1)
+        return [sub.reshape(()).item()] + [None] * (M - 1) + pad
     if rest != (TP,):
         raise NotImplementedError(
             f"a leaf of spec {leaf.spec} on a row: split over {rest} "
             f"besides the batch")
-    return list(sub)
+    return list(sub) + pad
+
+
+def _shape_of(pieces: np.ndarray, spec: P, mesh: Mesh) -> list:
+    first = pieces.flat[0]
+    return [first.shape[d] * _size(mesh, P.axes_of(e))
+            for d, e in enumerate(spec)] + list(first.shape[len(spec):])
 
 
 def shard_rows(blocks: list, spec: P, mesh: Mesh, axes) -> Sharded:
     """The inverse of ``row_block``: ``blocks[k][j]`` batch shard ``k``'s
-    tensor at position ``j`` of its row, made into the pieces of ``spec``
-    where they lie (nothing copied or moved): each position's own piece
-    where the spec splits over "model" besides the batch, the row's first
-    position's where it splits over the batch only; a leaf split over
-    nothing is the blocks' first positions' rows joined (``all_gather``)
-    on the mesh's first device."""
+    tensor at position ``j`` of its row (of its ``lines``), made into the
+    pieces of ``spec`` where they lie (nothing copied or moved): each
+    position's own piece where the spec splits over "model" besides the
+    batch, or over the batch axes and "model" with the batch not split;
+    the row's first position's where it splits over the batch only; a leaf
+    split over nothing is the blocks' first positions' rows joined
+    (``all_gather``) on the mesh's first device."""
     hit = _batch_entry(spec, axes)
+    devices = _spec_devices(spec, mesh)
+    pieces = np.empty(devices.shape, dtype=object)
     if hit is None:
-        if spec.mesh_axes():
+        if not spec.mesh_axes():
+            whole = collectives.all_gather(
+                collectives.shard_array([b[0] for b in blocks]), 0,
+                mesh.first_device)
+            one = np.empty((), dtype=object)
+            one[()] = whole
+            return Sharded(one, spec, mesh, whole.shape, whole.dtype)
+        if axes or len(blocks) != 1 or not _over_lines(spec, mesh):
             raise NotImplementedError(
                 f"spec {spec} on rows: not split over the batch axes "
                 f"{tuple(axes)}")
-        whole = collectives.all_gather(
-            collectives.shard_array([b[0] for b in blocks]), 0,
-            mesh.first_device)
-        one = np.empty((), dtype=object)
-        one[()] = whole
-        return Sharded(one, spec, mesh, whole.shape, whole.dtype)
+        for j, idx in enumerate(np.ndindex(devices.shape)):
+            pieces[idx] = blocks[0][j]
+        return Sharded(pieces, spec, mesh, _shape_of(pieces, spec, mesh),
+                       pieces.flat[0].dtype)
     _, a = hit
     names = spec.mesh_axes()
     t = names.index(TP) if TP in names else None
     sizes = [mesh.shape[x] for x in axes]
-    devices = _spec_devices(spec, mesh)
-    pieces = np.empty(devices.shape, dtype=object)
     for idx in np.ndindex(devices.shape):
         k = int(np.ravel_multi_index(idx[a:a + len(axes)], sizes))
         pieces[idx] = blocks[k][idx[t] if t is not None else 0]
-    first = pieces.flat[0]
-    shape = [first.shape[d] * _size(mesh, P.axes_of(e))
-             for d, e in enumerate(spec)] + list(first.shape[len(spec):])
-    return Sharded(pieces, spec, mesh, shape, first.dtype)
+    return Sharded(pieces, spec, mesh, _shape_of(pieces, spec, mesh),
+                   pieces.flat[0].dtype)
 
 
 def shard_blocks(blocks, spec: P, mesh: Mesh, axes) -> Sharded:
@@ -627,44 +686,51 @@ def batch_block_tree(tree, axes, k: int, n: int, device):
     return tree
 
 
-def row_block_tree(tree, axes, k: int, n: int, row) -> list:
+def row_block_tree(tree, axes, k: int, n: int, row, lines=None) -> list:
     """``row_block`` of every ``Sharded`` leaf of ``tree``: one tree per
-    position of ``row``; other leaves as they are at every position."""
-    M = len(row)
+    position of ``row`` (of ``lines``, where given); other leaves as they
+    are at every position."""
+    L = len(lines or row)
     if isinstance(tree, Sharded):
-        return row_block(tree, axes, k, n, row)
+        return row_block(tree, axes, k, n, row, lines)
     if isinstance(tree, dict):
-        parts = {key: row_block_tree(v, axes, k, n, row)
+        parts = {key: row_block_tree(v, axes, k, n, row, lines)
                  for key, v in tree.items()}
-        return [{key: parts[key][j] for key in parts} for j in range(M)]
+        return [{key: parts[key][j] for key in parts} for j in range(L)]
     if hasattr(tree, "_fields"):
-        parts = [row_block_tree(getattr(tree, f), axes, k, n, row)
+        parts = [row_block_tree(getattr(tree, f), axes, k, n, row, lines)
                  for f in tree._fields]
-        return [type(tree)(*(p[j] for p in parts)) for j in range(M)]
+        return [type(tree)(*(p[j] for p in parts)) for j in range(L)]
     if isinstance(tree, (list, tuple)):
-        parts = [row_block_tree(v, axes, k, n, row) for v in tree]
-        return [type(tree)(p[j] for p in parts) for j in range(M)]
-    return [tree] * M
+        parts = [row_block_tree(v, axes, k, n, row, lines) for v in tree]
+        return [type(tree)(p[j] for p in parts) for j in range(L)]
+    return [tree] * L
 
 
 def shard_rows_tree(blocks: list, specs, mesh: Mesh, axes):
     """``shard_rows`` leaf by leaf: ``blocks[k]`` batch shard ``k``'s trees,
-    one per position of its row (the structure of the first position's);
-    a non-tensor leaf is the first block's first position's."""
+    one per position of its row or lines (the structure of the first
+    position's; a subtree another position does not hold is ``None``
+    there); a non-tensor leaf is the first block's first position's."""
+    def sub(t, get):
+        return None if t is None else get(t)
+
     def walk(trees, sp):
         first = trees[0][0]
         if isinstance(first, torch.Tensor):
             return shard_rows(trees, sp, mesh, axes)
         if isinstance(first, dict):
-            return {key: walk([[t[key] for t in r] for r in trees], sp[key])
+            return {key: walk([[sub(t, lambda t: t[key]) for t in r]
+                               for r in trees], sp[key])
                     for key in first}
         if hasattr(first, "_fields"):
-            return type(first)(*(walk([[getattr(t, f) for t in r]
-                                       for r in trees], getattr(sp, f))
+            return type(first)(*(walk([[sub(t, lambda t: getattr(t, f))
+                                        for t in r] for r in trees],
+                                      getattr(sp, f))
                                  for f in first._fields))
         if isinstance(first, (list, tuple)):
-            return type(first)(walk([[t[i] if t is not None else None
-                                      for t in r] for r in trees], sp[i])
+            return type(first)(walk([[sub(t, lambda t: t[i]) for t in r]
+                                     for r in trees], sp[i])
                                for i in range(len(first)))
         return first
 

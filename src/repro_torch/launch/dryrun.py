@@ -51,14 +51,19 @@ cross-entropy by vocabulary. A position still gathers all its pieces over
 reduce-scatter, where GSPMD gathers layer by layer (ROADMAP §C.7). An
 ``fsdp`` config (zamba2, rwkv6, smollm, starcoder2) splits its batch over
 "model" and gathers whole leaves per batch shard, as the reference's
-layout does. The sharded prefill and decode of the same configs (every
-``tp_covers`` config: serving splits the weights over "model") run each
-batch shard on its row of positions too, the cache's sequence split over
-the row (the reference's flash-decoding layout); zamba2 and rwkv6 still
-run each batch shard at the position of model index 0 with whole leaves
-and whole cache rows gathered there (ROADMAP §C.7). The cells report the
-port's own figure. A moved tensor's gradient counts as traffic too
-(``collectives``). No number here was measured on a card.
+layout does. The sharded prefill and decode of every config
+``tp_covers(cfg, serving=True)`` takes (serving splits the weights over
+"model": the ``tp`` configs, and zamba2 and rwkv6 with Mamba2's packed
+``in_proj`` and heads, RWKV6's projections and heads and zamba2's shared
+attention sites split as ``param_specs`` splits them) run each batch shard
+on its row of positions too, the cache's sequence split over the row (the
+reference's flash-decoding layout), the recurrent states, which
+``decode_state_specs`` splits by batch only, at the row's first position.
+A batch of one (``long_500k``) is one row whose caches lie over every
+position of ``(data, model)``: the positions outside the row score their
+lines and join the combine. The cells report the port's own figure. A
+moved tensor's gradient counts as traffic too (``collectives``). No
+number here was measured on a card.
 """
 from __future__ import annotations
 
@@ -453,7 +458,8 @@ def _rows_prefill(cfg, mesh, max_seq, state_specs, params, batch):
     n_tok = batch["tokens"].numel()
     logits, states, disp = [], [], None
     for k, row in enumerate(map(tuple, grid)):
-        with mesh_lib.at(row[0]), mesh_lib.tensor_parallel(row):
+        lines = sharding.cache_row(state_specs, mesh, axes, row)
+        with mesh_lib.at(row[0]), mesh_lib.tensor_parallel(row, lines):
             disp = _shard_dispatch(cfg, len(grid), n_tok, disp, row[0], k)
             ps = row_pieces(params, row)
             parts = mesh_lib.each(lambda dev: {
@@ -475,11 +481,13 @@ def _rows_decode(cfg, mesh, state_specs, params, state, token):
     grid = _row_grid(mesh, axes)
     logits, states, disp = [], [], None
     for k, row in enumerate(map(tuple, grid)):
-        with mesh_lib.at(row[0]), mesh_lib.tensor_parallel(row):
+        lines = sharding.cache_row(state_specs, mesh, axes, row)
+        with mesh_lib.at(row[0]), mesh_lib.tensor_parallel(row, lines):
             disp = _shard_dispatch(cfg, len(grid), token.numel(), disp,
                                    row[0], k)
             ps = row_pieces(params, row)
-            st = sharding.row_block_tree(state, axes, k, len(grid), row)
+            st = sharding.row_block_tree(state, axes, k, len(grid), row,
+                                         lines)
             toks = mesh_lib.each(
                 lambda dev: token.narrow(0, k * rows, rows).to(dev), row)
             with _dispatching(disp):
@@ -502,17 +510,19 @@ def sharded_prefill(cfg, mesh, max_seq: int, state_specs):
     (``decode_state_specs``).
 
     The layout decides the path, as for the train step
-    (``train_step._tp_applies``): where the config is one
-    ``transformer.tp_covers`` takes, "model" has more than one position
-    and a leaf's spec splits it, each batch shard runs
-    ``model.prefill_tp`` on its row of "model" positions with each
-    position's pieces, and each position keeps the lines of its piece of
-    the cache (the flash-decoding layout; "row" in ``serve_paths``).
+    (``train_step._tp_applies(..., serving=True)``): where the config is
+    one ``transformer.tp_covers(cfg, serving=True)`` takes, "model" has
+    more than one position and a leaf's spec splits it, each batch shard
+    runs ``model.prefill_tp`` on its row of "model" positions with each
+    position's pieces, and each position of ``sharding.cache_row`` (the
+    row, or with a batch that is not split every position the cache lies
+    on) keeps the lines of its piece of the cache (the flash-decoding
+    layout; "row" in ``serve_paths``).
     Otherwise each batch shard gathers the parameters whole at its
     position and runs the one-device ``prefill`` on its rows, and the
     state is cut from each shard's rows ("whole leaves")."""
     def fn(params, batch):
-        if _tp_applies(cfg, mesh, params, False):
+        if _tp_applies(cfg, mesh, params, False, serving=True):
             serve_paths["row"] += 1
             return _rows_prefill(cfg, mesh, max_seq, state_specs, params,
                                  batch)
@@ -554,7 +564,7 @@ def sharded_decode(cfg, mesh, state_specs):
     pieces) at its position, runs the one-device ``decode_step`` and its
     new rows are cut back into new pieces."""
     def fn(params, state, token):
-        if _tp_applies(cfg, mesh, params, False):
+        if _tp_applies(cfg, mesh, params, False, serving=True):
             serve_paths["row"] += 1
             return _rows_decode(cfg, mesh, state_specs, params, state, token)
         serve_paths["whole leaves"] += 1

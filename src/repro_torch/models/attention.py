@@ -249,6 +249,49 @@ def attn_apply_tp(cfg, ps, xs, positions, causal: bool = True,
     return collectives.all_reduce(outs, row)
 
 
+def piece_lines(j: int, P: int, S: int) -> Tuple[int, int]:
+    """The first of the ``S`` prompt lines that cache piece ``j`` of ``P``
+    lines holds, and how many it holds (``narrow``'s arguments)."""
+    return min(j * P, S), max(0, min(P, S - j * P))
+
+
+def attn_fill_tp(cfg, ps, xs, caches):
+    """The prompt's K (roped) and V into the cache pieces of a row (the
+    one-device prefill's ``_fill_attn``), each piece its lines. Each
+    position of the row projects its columns of ``wk`` / ``wv`` (whole KV
+    heads or not) over every line, and one ``collectives.exchange`` trades
+    columns for lines, so that each piece's position ends with every KV
+    head of its lines; a leaf left whole gives each position of the row
+    the whole projection, and a piece's lines come from one of them.
+    ``caches``: one piece per position of ``mesh.cache_row()`` (the row,
+    or more positions)."""
+    row = _mesh.tp_row()
+    lines = _mesh.cache_row()
+    M, N = len(row), len(lines)
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    B, S = xs[0].shape[:2]
+    P = caches[0].k.shape[1]
+    for name in ("k", "v"):
+        cols = _mesh.each(lambda p, x: x @ p["w" + name].to(x.dtype), ps,
+                          xs)
+        whole = cols[0].shape[-1] == Hkv * dh
+        send = _mesh.each(lambda i, c: [
+            c.narrow(1, *piece_lines(h, P, S)) if not whole or i == h % M
+            else None for h in range(N)], range(M), cols)
+        got = collectives.exchange(send, lines)
+
+        def fill(j, c, parts):
+            first, n = piece_lines(j, P, S)
+            t = torch.cat(parts, -1).reshape(B, n, Hkv, dh)
+            if name == "k" and cfg.use_rope:
+                t = layers.apply_rope(t, torch.arange(
+                    first, first + n, device=t.device)[None], cfg.rope_theta)
+            getattr(c, name)[:, :n] = t.to(getattr(c, name).dtype)
+
+        _mesh.each(fill, range(N), caches, got, over=lines)
+    return [c._replace(index=S) for c in caches]
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype,
                device=None) -> KVCache:
     Hkv, dh = cfg.n_kv_heads, cfg.head_dim
@@ -353,13 +396,15 @@ def attn_decode(
 
 
 # ------------------------------------------- decode over a sequence-split row
-def flash_combine(scores, values, spec: str, dt, row) -> list:
+def flash_combine(scores, values, spec: str, dt, row, lines=None) -> list:
     """The flash-decoding softmax over the row: ``scores`` one piece's
     masked fp32 scores (..., 1, lines) per position (the heads before),
     ``values`` its values, ``spec`` the einsum of probabilities and
-    values. ``pmax_row`` of the pieces' maxima gives the global max
-    ``m``; each piece's ``exp(s - m)`` and its sum, added over the row by
-    ``all_reduce``, give the global sum ``l``; each piece contracts its
+    values; one of each per position of ``lines`` (the positions that
+    hold the pieces, ``row`` first; default the row). ``pmax_row`` of
+    the pieces' maxima gives the global max ``m``; each piece's ``exp(s
+    - m)`` and its sum, added over the pieces by ``all_reduce``, give the
+    global sum ``l``; each piece contracts its
     probabilities ``exp(s - m) / l``, cast to the compute dtype ``dt``
     where the one-device softmax casts them, with its values, and
     ``all_reduce`` (in fp32) adds the partial contexts. This is the
@@ -369,16 +414,17 @@ def flash_combine(scores, values, spec: str, dt, row) -> list:
     piece whose every line is masked (``-1e30``) adds exactly 0 while
     another piece holds a line the row may see; with none (a row past the
     cache's end under a window) every line weighs the same, as in the
-    one-device softmax. Returns the context at every position, in
-    ``dt``, shaped as ``spec`` gives it."""
-    big = collectives.pmax_row(
-        [s.amax(-1, keepdim=True) for s in scores], row)
-    e = _mesh.each(lambda s, m: torch.exp(s - m), scores, big)
+    one-device softmax. Returns the context at every position of the
+    row, in ``dt``, shaped as ``spec`` gives it."""
+    lines = lines or row
+    big = collectives.pmax_row(_mesh.each(
+        lambda s: s.amax(-1, keepdim=True), scores, over=lines), lines)
+    e = _mesh.each(lambda s, m: torch.exp(s - m), scores, big, over=lines)
     total = collectives.all_reduce(
-        _mesh.each(lambda t: t.sum(-1, keepdim=True), e), row)
+        _mesh.each(lambda t: t.sum(-1, keepdim=True), e, over=lines), lines)
     parts = _mesh.each(
         lambda t, l, v: torch.einsum(spec, (t / l).to(dt), v).to(_F32),
-        e, total, values)
+        e, total, values, over=lines)
     return _mesh.each(lambda t: t.to(dt), collectives.all_reduce(parts, row))
 
 
@@ -415,32 +461,40 @@ def attn_decode_tp(cfg, ps, xs, caches, use_rope: bool = True,
     ``flash_combine`` makes the softmax over the row's pieces, and the
     row-split ``wo`` gives partial outputs that ``all_reduce`` adds. No
     cache line leaves its position. Returns one output per position and
-    the pieces (written in place) with the cursor advanced."""
+    the pieces (written in place) with the cursor advanced.
+
+    Where the pieces lie on more positions than the row
+    (``mesh.cache_row()``: a batch that is not split, its cache's sequence
+    split over the batch axes and "model"), ``caches`` and ``positions``
+    have one entry per such position; the row's first position sends the
+    others the queries and the new line (``broadcast_row``), and they
+    score their lines and join the combine."""
     row = _mesh.tp_row()
-    M = len(row)
+    lines = _mesh.cache_row()
+    M, N = len(row), len(lines)
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     idx = caches[0].index
     P = caches[0].k.shape[1]
-    if positions is None and not 0 <= idx < P * M:
-        raise IndexError(f"decode cursor {idx} outside a cache of {P * M} "
+    if positions is None and not 0 <= idx < P * N:
+        raise IndexError(f"decode cursor {idx} outside a cache of {P * N} "
                          "lines")
-    positions = positions or [None] * M
+    positions = positions or [None] * N
     width = {"wq": H * dh, "wk": Hkv * dh, "wv": Hkv * dh}
     tp_splits["flash-decoding"] += 1
 
     def project(name):
         cols = _mesh.each(lambda p, x: x @ p[name].to(x.dtype), ps, xs)
-        if cols[0].shape[-1] == width[name]:
-            return cols
-        return collectives.all_gather_row(cols, -1, row)
+        if cols[0].shape[-1] != width[name]:
+            cols = collectives.all_gather_row(cols, -1, row)
+        return cols + (collectives.broadcast_row(cols[0], lines[M:])
+                       if N > M else [])
 
-    def partial(j, x, q, k_new, v_new, cache, pos):
-        dt = x.dtype
+    def partial(j, dt, q, k_new, v_new, cache, pos):
         q = _split_heads(q, H, dh)
         k_new = _split_heads(k_new, Hkv, dh)
         v_new = _split_heads(v_new, Hkv, dh)
         if use_rope:
-            at = (torch.full((1, 1), idx, device=x.device) if pos is None
+            at = (torch.full((1, 1), idx, device=q.device) if pos is None
                   else pos[:, None])
             q = layers.apply_rope(q, at, cfg.rope_theta)
             k_new = layers.apply_rope(k_new, at, cfg.rope_theta)
@@ -451,14 +505,15 @@ def attn_decode_tp(cfg, ps, xs, caches, use_rope: bool = True,
         q = q.reshape(q.shape[0], 1, Hkv, cfg.q_per_kv, dh)
         s = torch.einsum("bqgrd,bkgd->bgrqk", q, cache.k.to(dt)) * (
             1.0 / math.sqrt(dh))
-        mask = decode_mask(P, idx, pos, cfg.sliding_window, x.device, j * P)
+        mask = decode_mask(P, idx, pos, cfg.sliding_window, q.device, j * P)
         return torch.where(mask[:, None], s.to(_F32), NEG)
 
-    scores = _mesh.each(partial, range(M), xs, project("wq"),
-                        project("wk"), project("wv"), caches, positions)
-    values = _mesh.each(lambda x, c: c.v.to(x.dtype), xs, caches)
-    ctx = flash_combine(scores, values, "bgrqk,bkgd->bqgrd", xs[0].dtype,
-                        row)
+    dt = xs[0].dtype
+    scores = _mesh.each(partial, range(N), [dt] * N, project("wq"),
+                        project("wk"), project("wv"), caches, positions,
+                        over=lines)
+    values = _mesh.each(lambda c: c.v.to(dt), caches, over=lines)
+    ctx = flash_combine(scores, values, "bgrqk,bkgd->bqgrd", dt, row, lines)
     outs = _mesh.each(lambda o: o.reshape(o.shape[0], 1, H * dh), ctx)
     return (row_split_wo(H * dh, ps, outs, row),
             [c._replace(index=idx + 1) for c in caches])

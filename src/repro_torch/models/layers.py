@@ -13,7 +13,7 @@ activation per position, and give one per position.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -136,6 +136,90 @@ def mlp_apply_tp(cfg, ps, xs):
     if ps[0]["wo"].shape[0] == cfg.d_ff:
         return outs
     return collectives.all_reduce(outs, _mesh.tp_row())
+
+
+# ---------------------------------------------- pieces of a leaf on a row
+def span(j: int, M: int, n: int) -> Tuple[int, int]:
+    """Position ``j``'s share ``[j n / M, (j + 1) n / M)`` (floored) of
+    ``n`` channels on a row of ``M``: its piece of a leaf split over the
+    row, and the channels it computes where the leaf is whole."""
+    return j * n // M, (j + 1) * n // M
+
+
+def head_plan(M: int, n: int, dh: int) -> list:
+    """Per position of a row of ``M``, for ``n`` channels in heads of
+    ``dh``: its channels ``(c0, c1)`` (``span``), the heads that overlap
+    them ``(h0, h1)`` (it computes those: a head cut by the split is
+    computed at both of its positions) and the heads it owns ``(o0,
+    o1)``, whose first channel is its own (it sends those home)."""
+    out = []
+    for j in range(M):
+        c0, c1 = span(j, M, n)
+        out.append(((c0, c1), (c0 // dh, -(-c1 // dh)),
+                    (-(-c0 // dh), -(-c1 // dh))))
+    return out
+
+
+def heads_out(t, plan, dim: int, size: int = 1) -> list:
+    """Each position's heads ``(h0, h1)`` of ``t`` (heads of ``size``
+    entries along ``dim``), which lives at the row's first position, sent
+    there (``collectives.exchange``)."""
+    row = _mesh.tp_row()
+    with _mesh.at(row[0]):
+        sent = [t.narrow(dim, h0 * size, (h1 - h0) * size)
+                for _, (h0, h1), _ in plan]
+    return [s for s, in collectives.exchange([sent], row)]
+
+
+def heads_home(parts, plan, dim: int, size: int = 1):
+    """The inverse of ``heads_out``: each position's ``parts`` hold its
+    heads ``(h0, h1)``; each head is taken from the position that owns it
+    and joined at the row's first position (``all_gather``)."""
+    own = _mesh.each(lambda pl, t: t.narrow(
+        dim, (pl[2][0] - pl[1][0]) * size, (pl[2][1] - pl[2][0]) * size),
+        plan, parts)
+    return collectives.all_gather(collectives.shard_array(own), dim,
+                                  _mesh.tp_row()[0])
+
+
+def piece_of(v, j: int, lo: int, hi: int, n: int, dim: int = 0):
+    """Entries ``[lo, hi)`` of an ``n``-entry dim ``dim`` of a leaf, at row
+    position ``j``: ``v`` is the whole leaf (a width the row did not
+    divide) or position ``j``'s piece, entries ``[j w, (j + 1) w)``."""
+    w = v.shape[dim]
+    first = 0 if w == n else j * w
+    if not first <= lo <= hi <= first + w:
+        raise NotImplementedError(
+            f"entries [{lo}, {hi}) of {n} at position {j}, whose piece holds "
+            f"[{first}, {first + w})")
+    return v.narrow(dim, lo - first, hi - lo)
+
+
+def columns_tp(cols, full: int, want):
+    """The columns each position of the row needs of a column-parallel
+    product ``full`` columns wide: ``cols`` each position's piece (...,
+    full / M) (or the whole product, where the leaf was left whole),
+    ``want`` per position a list of increasing, disjoint ``(first, stop)``
+    ranges. Where the pieces are split, one ``collectives.exchange`` moves
+    each range's columns from the positions that hold them (a position's
+    own stay); returns, per position, the ranges' columns joined in
+    order."""
+    row = _mesh.tp_row()
+    if cols[0].shape[-1] == full:
+        return _mesh.each(lambda c, w: torch.cat(
+            [c[..., a:b] for a, b in w], -1), cols, want)
+    n = cols[0].shape[-1]
+
+    def send(i, c):
+        parts = []
+        for w in want:
+            got = [c[..., max(a, i * n) - i * n:min(b, (i + 1) * n) - i * n]
+                   for a, b in w if max(a, i * n) < min(b, (i + 1) * n)]
+            parts.append(torch.cat(got, -1) if got else None)
+        return parts
+
+    got = collectives.exchange(_mesh.each(send, range(len(row)), cols), row)
+    return _mesh.each(lambda g: torch.cat(g, -1), got)
 
 
 # --------------------------------------------------------------- embedding

@@ -16,8 +16,8 @@ import torch
 from ..distributed import collectives
 from ..distributed import mesh as _mesh
 from . import layers
-from .attention import (NEG, decode_mask, flash_combine, write_line,
-                        write_rows)
+from .attention import (NEG, decode_mask, flash_combine, piece_lines,
+                        write_line, write_rows)
 
 _F32 = torch.float32
 
@@ -176,6 +176,27 @@ def mla_apply_tp(cfg, ps, xs, positions, causal: bool = True):
     return collectives.all_reduce(outs, row) if wo_split else outs
 
 
+def mla_fill_tp(cfg, ps, xs, caches, positions):
+    """The MLA latents of each position's lines into its cache piece:
+    ``w_dkv``, ``w_krope`` and ``kv_norm`` are whole at every position."""
+    if len(caches) != len(xs):
+        raise NotImplementedError(
+            f"MLA prefill with the latent cache on {len(caches)} positions "
+            f"besides a row of {len(xs)}")
+    P = caches[0].c_kv.shape[1]
+    S = xs[0].shape[1]
+
+    def fill(j, p, x, c, pos):
+        first, n = piece_lines(j, P, S)
+        c_kv, k_rope = latent_kv(cfg, p, x.narrow(1, first, n),
+                                 pos.narrow(0, first, n))
+        c.c_kv[:, :n] = c_kv.to(c.c_kv.dtype)
+        c.k_rope[:, :n] = k_rope.to(c.k_rope.dtype)
+        return c._replace(index=S)
+
+    return _mesh.each(fill, range(len(caches)), ps, xs, caches, positions)
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype,
                device=None) -> MLACache:
     z = dict(dtype=dtype, device=device)
@@ -249,6 +270,10 @@ def mla_decode_tp(cfg, ps, xs, caches, positions=None):
     (written in place) with the cursor advanced."""
     row = _mesh.tp_row()
     M = len(row)
+    if len(caches) != M:
+        raise NotImplementedError(
+            f"MLA decode with the latent cache on {len(caches)} positions "
+            f"besides a row of {M}")
     H = cfg.n_heads
     dn, dr, dv, r = (cfg.qk_nope_dims, cfg.qk_rope_dims, cfg.v_head_dim,
                      cfg.kv_lora)

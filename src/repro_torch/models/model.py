@@ -17,12 +17,17 @@ batch axis is 0.
 
 ``prefill_tp`` and ``decode_step_tp`` are ``prefill`` and ``decode_step``
 on a tensor-parallel row (``distributed.mesh.tensor_parallel``) for the
-configs ``transformer.tp_covers``, with the reference's flash-decoding
-cache layout: one parameter tree (the position's "model" pieces) and one
-``DecodeState`` per position of the row, whose caches hold the lines of
-the position's sequence piece (``decode_state_specs`` splits the cache's
-sequence over "model"); the encoder's cross K/V (whisper), which that
-layout leaves whole over "model", lives in the first position's state.
+configs ``transformer.tp_covers(cfg, serving=True)``, with the reference's
+flash-decoding cache layout: one parameter tree (the position's "model"
+pieces) per position of the row and one ``DecodeState`` per position that
+holds a piece of the caches (``mesh.cache_row()``: the row, or every
+position of the batch axes and "model" where the batch is not split),
+whose attention caches hold the lines of the position's sequence piece
+(``decode_state_specs`` splits the cache's sequence over "model", or over
+the batch axes and "model"). What that layout splits by batch only or
+leaves whole over "model" lives in the row's first position's state: the
+recurrent layers' states (mamba2's conv window and SSM state, rwkv6's
+shifts and wkv state), the encoder's cross K/V (whisper).
 """
 from __future__ import annotations
 
@@ -88,11 +93,6 @@ def init_decode_state(cfg, batch: int, max_seq: int,
     step = (torch.zeros((batch,), dtype=torch.int64, device=device)
             if per_row else 0)
     return DecodeState(layer=layer, shared=shared, cross=cross, step=step)
-
-
-def _site(cfg, i: int) -> int:
-    """Index of the shared-attention site after layer ``i``."""
-    return (i + 1) // cfg.shared_attn_every - 1
 
 
 # ----------------------------------------------------------------- decode
@@ -163,7 +163,7 @@ def decode_step(cfg, params, token: torch.Tensor,
                                  cache, positions)
         x = x + h
         if transformer.shared_site(cfg, i):
-            site = _site(cfg, i)
+            site = transformer.site_of(cfg, i)
             sc = shared[site]
             if not per_row:
                 # all sites share the same write index = step
@@ -305,7 +305,7 @@ def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,
         x = x + h
         if transformer.shared_site(cfg, i):
             scfg = cfg.replace(mixer="attn")
-            site = _site(cfg, i)
+            site = transformer.site_of(cfg, i)
             xn = layers.apply_norm(cfg, x, params["shared_norm"])
             x = x + attention.attn_apply(scfg, params["shared_attn"], xn,
                                          positions, use_rope=cfg.use_rope)
@@ -331,65 +331,6 @@ def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,
 
 
 # ------------------------------------------------------- on a TP row of pieces
-def _lines(j: int, P: int, S: int) -> Tuple[int, int]:
-    """The first of the ``S`` prompt lines that position ``j``'s piece of
-    ``P`` lines holds, and how many it holds (``narrow``'s arguments)."""
-    return min(j * P, S), max(0, min(P, S - j * P))
-
-
-def _fill_attn_tp(cfg, pas, xs, caches, positions):
-    """``_fill_attn`` on the row: each position's piece gets the prompt's
-    K (roped) and V of its lines. Each position projects its columns of
-    ``wk`` / ``wv`` (whole KV heads or not) over every line, and
-    ``all_to_all`` exchanges columns for lines, so that each position ends
-    with every KV head of its own lines; a leaf left whole gives each
-    position the whole projection, narrowed to its lines."""
-    row = _mesh.tp_row()
-    M = len(row)
-    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    B, S = xs[0].shape[:2]
-    P = caches[0].k.shape[1]
-    for name in ("k", "v"):
-        cols = _mesh.each(lambda p, x: x @ p["w" + name].to(x.dtype), pas,
-                          xs)
-        if cols[0].shape[-1] == Hkv * dh:
-            mine = [c.narrow(1, *_lines(j, P, S)) for j, c in enumerate(cols)]
-        else:
-            got = collectives.all_to_all(collectives.shard_array([
-                [c.narrow(1, *_lines(m, P, S)) for m in range(M)]
-                for c in cols]), 0)                 # (M, B, lines, cols/M)
-            mine = [g.permute(1, 2, 0, 3).reshape(B, g.shape[2], Hkv * dh)
-                    for g in got]
-
-        def fill(j, c, t, pos):
-            first, n = _lines(j, P, S)
-            t = t.reshape(B, n, Hkv, dh)
-            if name == "k" and cfg.use_rope:
-                t = layers.apply_rope(t, pos.narrow(0, first, n)[None],
-                                      cfg.rope_theta)
-            getattr(c, name)[:, :n] = t.to(getattr(c, name).dtype)
-
-        _mesh.each(fill, range(M), caches, mine, positions)
-    return [c._replace(index=S) for c in caches]
-
-
-def _fill_latent_tp(cfg, pms, xs, caches, positions):
-    """The MLA latents of each position's lines into its piece: ``w_dkv``,
-    ``w_krope`` and ``kv_norm`` are whole at every position."""
-    P = caches[0].c_kv.shape[1]
-    S = xs[0].shape[1]
-
-    def fill(j, p, x, c, pos):
-        first, n = _lines(j, P, S)
-        c_kv, k_rope = mla.latent_kv(cfg, p, x.narrow(1, first, n),
-                                     pos.narrow(0, first, n))
-        c.c_kv[:, :n] = c_kv.to(c.c_kv.dtype)
-        c.k_rope[:, :n] = k_rope.to(c.k_rope.dtype)
-        return c._replace(index=S)
-
-    return _mesh.each(fill, range(len(caches)), pms, xs, caches, positions)
-
-
 def _cross_kv_tp(cfg, ps, enc_outs):
     """The encoder's K and V for every layer, (L, B, S_enc, Hkv, dh) each,
     whole at the row's first position (``decode_state_specs`` leaves them
@@ -413,23 +354,43 @@ def _cross_kv_tp(cfg, ps, enc_outs):
     return out
 
 
+def _row_caches(cfg, B: int, P: int, dt, dev, S: int) -> DecodeState:
+    """The state pieces a position of the row's cache positions starts
+    with: an attention layer's ``P``-line piece (filled by prefill), a
+    recurrent layer's placeholder (the row's state lives at its first
+    position), the shared sites' pieces."""
+    rec = {"mamba2": ssm.SSMCache(None, None, S),
+           "rwkv6": rwkv.RWKVCache(None, None, None, S)}
+    layer = [_layer_cache(cfg, B, P, dt, dev) if cfg.mixer == "attn"
+             else rec[cfg.mixer] for _ in range(cfg.n_layers)]
+    shared = None
+    if cfg.shared_attn_every > 0:
+        shared = [attention.init_cache(cfg, B, P, dt, dev)
+                  for _ in range(cfg.attn_sites)]
+    return DecodeState(layer=layer, shared=shared, cross=None, step=S)
+
+
 def prefill_tp(cfg, ps, tokens, max_seq: int, vision_embeds=None,
                audio_frames=None):
     """``prefill`` on the row of ``mesh.tp_row()``: ``ps`` one parameter
     tree per position, the inputs one tensor per position (the batch
-    shard's rows). The prompt runs as ``transformer.forward_tp`` runs it
-    (``attn_apply_tp`` / ``mla_apply_tp``, ``apply_channel_tp``); each
-    position's cache piece holds lines ``[j P, (j + 1) P)`` of the
-    ``max_seq``-line cache, ``P = max_seq / M`` (``_fill_attn_tp``,
-    ``_fill_latent_tp``). Returns each position's last-position logits of
-    its range of the vocabulary (fp32, (B, 1, V/M); the whole vocabulary
-    where the head is whole) and one ``DecodeState`` per position."""
-    row = _mesh.tp_row()
-    M = len(row)
-    if max_seq % M:
+    shard's rows). The prompt runs through ``transformer.forward_tp``'s
+    blocks (``transformer._block_tp``), which also fill the caches. The
+    ``N`` positions of ``mesh.cache_row()`` (the row, or more) hold the
+    attention caches: position ``j``'s piece lines ``[j P, (j + 1) P)`` of
+    the ``max_seq``-line cache, ``P = max_seq / N``
+    (``attention.attn_fill_tp``, ``mla.mla_fill_tp``); a recurrent layer's
+    state (split by batch only) lands at the row's first position.
+    Returns each position's
+    last-position logits of its range of the vocabulary (fp32, (B, 1,
+    V/M); the whole vocabulary where the head is whole) and one
+    ``DecodeState`` per position of the cache row."""
+    lines = _mesh.cache_row()
+    N = len(lines)
+    if max_seq % N and (cfg.mixer == "attn" or cfg.shared_attn_every > 0):
         raise ValueError(f"a cache of {max_seq} lines does not split over "
-                         f"a row of {M}")
-    P = max_seq // M
+                         f"{N} positions")
+    P = max_seq // N
     dt = layers.dtype_of(cfg.compute_dtype)
     xs = transformer.embed_tp(cfg, ps, tokens, vision_embeds)
     B, S = xs[0].shape[:2]
@@ -437,8 +398,8 @@ def prefill_tp(cfg, ps, tokens, max_seq: int, vision_embeds=None,
         raise ValueError(f"a prompt of {S} tokens into a cache of "
                          f"{max_seq} lines")
     positions = transformer._positions_tp(xs)
-    caches = _mesh.each(lambda x: [_layer_cache(cfg, B, P, dt, x.device)
-                                   for _ in range(cfg.n_layers)], xs)
+    states = _mesh.each(lambda d: _row_caches(cfg, B, P, dt, d, S), lines,
+                        over=lines)
     cross = enc_outs = None
     if cfg.enc_dec:
         enc_outs = transformer.encode_tp(cfg, ps, audio_frames)
@@ -446,39 +407,30 @@ def prefill_tp(cfg, ps, tokens, max_seq: int, vision_embeds=None,
             S, cfg.d_model, x.device).to(dt)[None], xs)
         cross = (enc_outs[0], *_cross_kv_tp(cfg, ps, enc_outs))
     blocks = [p["blocks"] for p in ps]
-    norm = transformer._norm_tp
     for i in range(cfg.n_layers):
-        bps = transformer._layer_tp(blocks, i)
-        h_in = norm(cfg, xs, [b["norm1"] for b in bps])
-        mine = [c[i] for c in caches]
-        if cfg.mla:
-            pms = [b["mla"] for b in bps]
-            hs = mla.mla_apply_tp(cfg, pms, h_in, positions)
-            mine = _fill_latent_tp(cfg, pms, h_in, mine, positions)
-        else:
-            pas = [b["attn"] for b in bps]
-            hs = attention.attn_apply_tp(cfg, pas, h_in, positions,
-                                         use_rope=cfg.use_rope)
-            mine = _fill_attn_tp(cfg, pas, h_in, mine, positions)
-        for c, m in zip(caches, mine):
-            c[i] = m
-        xs = transformer._add(xs, hs)
-        if cross is not None:
-            xs = transformer._add(xs, attention.attn_apply_tp(
-                cfg, [b["xattn"] for b in bps],
-                norm(cfg, xs, [b["norm_x"] for b in bps]), positions,
-                causal=False, kv_source=enc_outs, use_rope=False))
-        hs, _ = transformer.apply_channel_tp(
-            cfg, ps, bps, norm(cfg, xs, [b["norm2"] for b in bps]), i)
-        xs = transformer._add(xs, hs)
-    xs = norm(cfg, [x[:, -1:] for x in xs], [p["final_norm"] for p in ps])
+        xs, _ = transformer._block_tp(
+            cfg, ps, transformer._layer_tp(blocks, i), xs, positions, i,
+            enc_outs, states)
+    xs = transformer._norm_tp(cfg, [x[:, -1:] for x in xs],
+                              [p["final_norm"] for p in ps])
     logits = layers.logits_from_hidden_tp(cfg, ps, xs)
-    return logits, [DecodeState(layer=c, shared=None,
-                                cross=cross if j == 0 else None, step=S)
-                    for j, c in enumerate(caches)]
+    return logits, [s._replace(cross=cross) if j == 0 else s
+                    for j, s in enumerate(states)]
 
 
 def _mixer_decode_tp(cfg, bps, xs, caches, positions):
+    """A layer's mixer for one token on the row: ``caches`` one per
+    position of ``mesh.cache_row()``; a recurrent layer's state at the
+    row's first position."""
+    M = len(xs)
+    if cfg.mixer == "mamba2":
+        hs, new = ssm.ssm_decode_tp(cfg, [b["ssm"] for b in bps], xs,
+                                    caches[:M])
+        return hs, new + list(caches[M:])
+    if cfg.mixer == "rwkv6":
+        hs, new = rwkv.tmix_decode_tp(cfg, [b["tmix"] for b in bps], xs,
+                                      caches[:M])
+        return hs, new + list(caches[M:])
     if cfg.mla:
         return mla.mla_decode_tp(cfg, [b["mla"] for b in bps], xs, caches,
                                  positions)
@@ -508,15 +460,19 @@ def _cross_decode_tp(cfg, bps, xs, k, v):
 def decode_step_tp(cfg, ps, tokens, states):
     """``decode_step`` on the row of ``mesh.tp_row()``: ``ps`` one
     parameter tree per position, ``tokens`` one (B, 1) per position (the
-    batch shard's rows), ``states`` one ``DecodeState`` per position
-    (``prefill_tp``'s: the position's cache pieces; a per-row ``step`` a
-    (B,) tensor at each position). Every attention layer runs
-    ``attention.attn_decode_tp`` / ``mla.mla_decode_tp`` against the
-    pieces, written in place, the channel ``apply_channel_tp``, whisper's
+    batch shard's rows), ``states`` one ``DecodeState`` per position of
+    ``mesh.cache_row()`` (``prefill_tp``'s: the position's cache pieces,
+    a recurrent layer's state at the row's first position; a per-row
+    ``step`` a (B,) tensor at each position). Every attention layer and
+    shared site runs ``attention.attn_decode_tp`` / ``mla.mla_decode_tp``
+    against the pieces, written in place, a mamba2 layer
+    ``ssm.ssm_decode_tp``, an rwkv6 layer ``rwkv.tmix_decode_tp`` and
+    ``cmix_decode_tp``, the channel ``apply_channel_tp``, whisper's
     cross-attention ``_cross_decode_tp``. Returns each position's logits
     of its range of the vocabulary (fp32, (B, 1, V/M)) and the states
     advanced by one position."""
     dt = layers.dtype_of(cfg.compute_dtype)
+    M = len(ps)
     per_row = isinstance(states[0].step, torch.Tensor)
     positions = [s.step for s in states] if per_row else None
     xs = transformer.embed_tp(cfg, ps, tokens)
@@ -528,9 +484,11 @@ def decode_step_tp(cfg, ps, tokens, states):
                 rows = pos_emb[s.step.clamp(max=cfg.max_seq - 1)]
                 return x + rows[:, None].to(dt)
             return x + pos_emb[s.step:s.step + 1].to(dt)[None]
-        xs = _mesh.each(add_position, xs, states)
+        xs = _mesh.each(add_position, xs, states[:M])
     blocks = [p["blocks"] for p in ps]
     norm = transformer._norm_tp
+    shared = [list(s.shared) if s.shared is not None else None
+              for s in states]
     layer_new = []
     for i in range(cfg.n_layers):
         bps = transformer._layer_tp(blocks, i)
@@ -538,19 +496,37 @@ def decode_step_tp(cfg, ps, tokens, states):
             cfg, bps, norm(cfg, xs, [b["norm1"] for b in bps]),
             [s.layer[i] for s in states], positions)
         xs = transformer._add(xs, hs)
+        if transformer.shared_site(cfg, i):
+            site = transformer.site_of(cfg, i)
+            scfg = cfg.replace(mixer="attn")
+            sc = [sh[site] for sh in shared]
+            if not per_row:
+                sc = [c._replace(index=states[0].step) for c in sc]
+            hs, sc = attention.attn_decode_tp(
+                scfg, [p["shared_attn"] for p in ps],
+                norm(cfg, xs, [p["shared_norm"] for p in ps]), sc,
+                cfg.use_rope, positions)
+            for sh, c in zip(shared, sc):
+                sh[site] = c
+            xs = transformer._add(xs, hs)
         if states[0].cross is not None:
             _, ck, cv = states[0].cross
             xs = transformer._add(xs, _cross_decode_tp(
                 cfg, bps, norm(cfg, xs, [b["norm_x"] for b in bps]), ck[i],
                 cv[i]))
-        hs, _ = transformer.apply_channel_tp(
-            cfg, ps, bps, norm(cfg, xs, [b["norm2"] for b in bps]), i)
+        h_in = norm(cfg, xs, [b["norm2"] for b in bps])
+        if cfg.mlp == "rwkv6_cmix":
+            hs, new = rwkv.cmix_decode_tp(cfg, [b["cmix"] for b in bps],
+                                          h_in, caches[:M])
+            caches = new + list(caches[M:])
+        else:
+            hs, _ = transformer.apply_channel_tp(cfg, ps, bps, h_in, i)
         xs = transformer._add(xs, hs)
         layer_new.append(caches)
     xs = norm(cfg, xs, [p["final_norm"] for p in ps])
     logits = layers.logits_from_hidden_tp(cfg, ps, xs)
     return logits, _mesh.each(
         lambda j, s: DecodeState(layer=[c[j] for c in layer_new],
-                                 shared=None, cross=s.cross,
+                                 shared=shared[j], cross=s.cross,
                                  step=s.step + 1),
-        range(len(states)), states)
+        range(len(states)), states, over=_mesh.cache_row())

@@ -23,10 +23,12 @@ Families:
 
 ``forward_tp`` is ``forward`` under ``distributed.mesh.tensor_parallel``
 for the configs ``tp_covers`` (attention, MLA or not; a swiglu, gelu or
-MoE channel): one parameter tree per position of the row, each holding
-that position's "model" pieces (Megatron's column / row splits, MLA's
-heads, ``E/M`` whole experts; the embedding, the head and so the logits
-split by vocabulary), the residual stream replicated at every position,
+MoE channel; with ``serving``, the mamba2 and rwkv6 mixers and zamba2's
+shared attention sites too): one parameter tree per position of the row,
+each holding that position's "model" pieces (Megatron's column / row
+splits, MLA's heads, ``E/M`` whole experts, the SSM's and RWKV's heads;
+the embedding, the head and so the logits split by vocabulary), the
+residual stream replicated at every position,
 the row's sums through ``distributed.collectives``. Each block, remat
 included, runs the whole row in lockstep (``mesh.each``).
 """
@@ -140,6 +142,11 @@ def shared_site(cfg, i: int) -> bool:
     """Does the shared attention block run after layer ``i``?"""
     return (cfg.shared_attn_every > 0
             and i % cfg.shared_attn_every == cfg.shared_attn_every - 1)
+
+
+def site_of(cfg, i: int) -> int:
+    """Index of the shared-attention site after layer ``i``."""
+    return (i + 1) // cfg.shared_attn_every - 1
 
 
 # ============================================================ forward
@@ -307,13 +314,25 @@ def forward(
 
 
 # ============================================================ on a TP row
-def tp_covers(cfg) -> bool:
-    """Does ``forward_tp`` run this config? Attention (MLA or not) and a
-    swiglu, gelu or MoE channel, no shared attention block (whisper's
-    encoder and cross-attention and llava's vision prefix included)."""
-    return (cfg.mixer == "attn"
-            and cfg.mlp in ("swiglu", "gelu", "moe")
+def tp_covers(cfg, serving: bool = False) -> bool:
+    """Does the sharded train step run this config on rows
+    (``forward_tp``)? Attention (MLA or not) and a swiglu, gelu or MoE
+    channel, no shared attention block (whisper's encoder and
+    cross-attention and llava's vision prefix included). With ``serving``:
+    do the sharded prefill and decode (``model.prefill_tp`` /
+    ``decode_step_tp``)? Those configs, and the mamba2 mixer with a
+    swiglu or gelu channel and shared attention sites (zamba2) and the
+    rwkv6 time and channel mix. The train step does not take the latter
+    two: they are ``fsdp`` configs, whose batch the reference's layout
+    splits over "model" with whole leaves."""
+    attn = (cfg.mixer == "attn" and cfg.mlp in ("swiglu", "gelu", "moe")
             and cfg.shared_attn_every == 0)
+    if not serving:
+        return attn
+    return attn or (cfg.mixer == "mamba2" and cfg.mlp in ("swiglu", "gelu")
+                    and not cfg.enc_dec) or (
+        cfg.mixer == "rwkv6" and cfg.mlp == "rwkv6_cmix"
+        and cfg.shared_attn_every == 0 and not cfg.enc_dec)
 
 
 def _norm_tp(cfg, xs, ws):
@@ -328,12 +347,55 @@ def _layer_tp(trees, i: int):
     return [layer(t, i) for t in trees]
 
 
-def _apply_mixer_tp(cfg, bps, xs, positions):
-    """``_apply_mixer`` over the row."""
+def _last_token_home(xs):
+    """The row's last input token at its first position (an rwkv6 shift,
+    which ``decode_state_specs`` splits by batch only)."""
+    with _mesh.at(_mesh.tp_row()[0]):
+        return xs[0][:, -1].to(xs[0].dtype, copy=True)
+
+
+def _apply_mixer_tp(cfg, bps, xs, positions, caches=None):
+    """``_apply_mixer`` over the row. With ``caches`` (prefill's: the
+    layer's pieces, one per position of ``mesh.cache_row()``) returns
+    (outputs, the pieces holding the prompt): an attention layer's lines
+    in each piece, a recurrent layer's state at the row's first position
+    (``decode_state_specs`` splits it by batch only), the other pieces as
+    they came."""
+    fill = caches is not None
+    if cfg.mixer == "mamba2":
+        out = ssm.ssm_apply_tp(cfg, [b["ssm"] for b in bps], xs,
+                               return_cache=fill)
+        return (out[0], out[1] + caches[len(xs):]) if fill else out
+    if cfg.mixer == "rwkv6":
+        out = rwkv.tmix_apply_tp(cfg, [b["tmix"] for b in bps], xs,
+                                 return_state=fill)
+        if not fill:
+            return out
+        home = caches[0]._replace(shift_tmix=_last_token_home(xs),
+                                  wkv=out[1])
+        return out[0], [home] + caches[1:]
     if cfg.mla:
-        return mla.mla_apply_tp(cfg, [b["mla"] for b in bps], xs, positions)
-    return attention.attn_apply_tp(cfg, [b["attn"] for b in bps], xs,
-                                   positions, use_rope=cfg.use_rope)
+        pms = [b["mla"] for b in bps]
+        hs = mla.mla_apply_tp(cfg, pms, xs, positions)
+        return (hs, mla.mla_fill_tp(cfg, pms, xs, caches, positions)) \
+            if fill else hs
+    pas = [b["attn"] for b in bps]
+    hs = attention.attn_apply_tp(cfg, pas, xs, positions,
+                                 use_rope=cfg.use_rope)
+    return (hs, attention.attn_fill_tp(cfg, pas, xs, caches)) if fill \
+        else hs
+
+
+def _mixer_filling(cfg, bps, xs, positions, states, field: str, k: int):
+    """``_apply_mixer_tp``; with ``states`` it also writes the prompt into
+    their pieces ``getattr(state, field)[k]``, in place."""
+    if states is None:
+        return _apply_mixer_tp(cfg, bps, xs, positions)
+    hs, new = _apply_mixer_tp(cfg, bps, xs, positions,
+                              [getattr(s, field)[k] for s in states])
+    for s, c in zip(states, new):
+        getattr(s, field)[k] = c
+    return hs
 
 
 def apply_channel_tp(cfg, ps, bps, xs, layer_idx: int):
@@ -354,21 +416,38 @@ def apply_channel_tp(cfg, ps, bps, xs, layer_idx: int):
             if mesh is not None:
                 return moe.moe_apply_a2a_tp(cfg, moes, xs, mesh)
         return moe.moe_apply_tp(cfg, moes, xs)
+    if cfg.mlp == "rwkv6_cmix":
+        return rwkv.cmix_apply_tp(cfg, [b["cmix"] for b in bps], xs), zero
     return layers.mlp_apply_tp(cfg, [b["mlp"] for b in bps], xs), zero
 
 
-def _block_tp(cfg, ps, bps, xs, positions, layer_idx, enc_outs=None):
-    """``_block_apply`` over the row; returns (xs, aux)."""
-    xs = _add(xs, _apply_mixer_tp(
-        cfg, bps, _norm_tp(cfg, xs, [b["norm1"] for b in bps]), positions))
+def _block_tp(cfg, ps, bps, xs, positions, layer_idx, enc_outs=None,
+              states=None):
+    """``_block_apply`` over the row; returns (xs, aux). With ``states``
+    (``model.prefill_tp``'s: one ``DecodeState`` per position of
+    ``mesh.cache_row()``) the block also writes the prompt into them, in
+    place: its layer's and its shared site's cache pieces
+    (``_apply_mixer_tp``) and an rwkv6 channel mix's shift."""
+    xs = _add(xs, _mixer_filling(
+        cfg, bps, _norm_tp(cfg, xs, [b["norm1"] for b in bps]), positions,
+        states, "layer", layer_idx))
+    if shared_site(cfg, layer_idx):
+        xs = _add(xs, _mixer_filling(
+            cfg.replace(mixer="attn"),
+            [{"attn": p["shared_attn"]} for p in ps],
+            _norm_tp(cfg, xs, [p["shared_norm"] for p in ps]), positions,
+            states, "shared", site_of(cfg, layer_idx)))
     if enc_outs is not None:
         xs = _add(xs, attention.attn_apply_tp(
             cfg, [b["xattn"] for b in bps],
             _norm_tp(cfg, xs, [b["norm_x"] for b in bps]), positions,
             causal=False, kv_source=enc_outs, use_rope=False))
-    hs, aux = apply_channel_tp(
-        cfg, ps, bps, _norm_tp(cfg, xs, [b["norm2"] for b in bps]),
-        layer_idx)
+    h_in = _norm_tp(cfg, xs, [b["norm2"] for b in bps])
+    hs, aux = apply_channel_tp(cfg, ps, bps, h_in, layer_idx)
+    if states is not None and cfg.mlp == "rwkv6_cmix":
+        home = states[0].layer[layer_idx]
+        states[0].layer[layer_idx] = home._replace(
+            shift_cmix=_last_token_home(h_in))
     return _add(xs, hs), aux
 
 

@@ -5,7 +5,8 @@
 this module closes the loop: it *measures* the same three terms on a live
 mesh and joins them against the prediction, per strategy and per term, with
 relative errors. It is how ``plan.H100`` is fitted (``run`` on the card,
-then ``plan.calibrate_host`` of its rows).
+then ``plan.calibrate_host`` of its rows; the committed rows are the
+median of several runs, ``median_reports``).
 
 Measurement protocol (differential timing — the host clock sees a strategy
 as a whole):
@@ -454,3 +455,57 @@ def run(
     if mesh.first_device.type == "cuda":
         out["nvidia_smi"] = nvidia_smi()
     return out
+
+
+def median_reports(runs: Sequence[List[Dict]]) -> List[Dict]:
+    """Several runs of the same probes as one list of reports: ``runs``
+    each a list of ``run``'s reports in the same order; each row's
+    measured seconds become the median over the runs, with its relative
+    error and the report text again, and ``median_of`` the number of
+    runs. Raises if the runs' reports do not hold the same rows and
+    predictions."""
+    out = []
+    for reps in zip(*runs):
+        first = reps[0]
+
+        def key(rep):
+            return rep["mesh"], [(r["strategy"], r["term"], r["predicted_s"])
+                                 for r in rep["rows"]]
+
+        if any(key(rep) != key(first) for rep in reps[1:]):
+            raise ValueError("the runs' reports do not hold the same rows")
+        rows = []
+        for i, r in enumerate(first["rows"]):
+            m = float(np.median([rep["rows"][i]["measured_s"]
+                                 for rep in reps]))
+            p = r["predicted_s"]
+            rows.append({**r, "measured_s": m, "rel_err": None if p is None
+                         else (m - p) / max(abs(p), 1e-12)})
+        out.append({**first, "rows": rows, "report": report_text(rows),
+                    "median_of": len(reps)})
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """The median (``median_reports``) of the ``planner_reconcile`` reports
+    in ``chip_smoke.py`` output logs, as JSON on standard output: how
+    ``results/torch/reconcile_h100.json`` is made, with ``PYTHONPATH=src
+    python -c 'from repro_torch.obs import reconcile; reconcile.main()'
+    LOG [LOG ...]``."""
+    import argparse
+    import json
+    import sys
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("logs", nargs="+")
+    args = ap.parse_args(argv)
+    runs = []
+    for path in args.logs:
+        with open(path) as f:
+            for line in f:
+                if '"planner_reconcile"' in line:
+                    runs.append(json.loads(line)["reports"])
+    if not runs:
+        raise SystemExit("no planner_reconcile line in the logs")
+    json.dump(median_reports(runs), sys.stdout, indent=1)
+    sys.stdout.write("\n")

@@ -322,9 +322,12 @@ def row_value_and_grad(loss_fn, ps, parts):
     return (total, out), [g[j] for j in range(len(ps))]
 
 
-def _tp_applies(cfg, mesh, params, batch_over_model: bool) -> bool:
-    """Does the layout make the step tensor-parallel (GSPMD's choice)?"""
-    return (not batch_over_model and tp_covers(cfg)
+def _tp_applies(cfg, mesh, params, batch_over_model: bool,
+                serving: bool = False) -> bool:
+    """Does the layout make the step tensor-parallel (GSPMD's choice)?
+    ``serving``: the sharded prefill and decode, which ``tp_covers`` takes
+    for more configs than the train step (the mamba2 and rwkv6 ones)."""
+    return (not batch_over_model and tp_covers(cfg, serving)
             and mesh.shape.get(_sh.TP, 1) > 1
             and any(_sh.TP in p.spec.mesh_axes() for p in leaves(params)))
 

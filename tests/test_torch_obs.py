@@ -315,3 +315,46 @@ def test_reconcile_rows_and_report_text_match_reference():
         ("h100_seed", "H100_SEED"))}
     assert all(k == v for k, v in names.items()), names
     assert reconcile._hw_name(plan.Hardware(1.0, 1.0, 1.0, 1.0)) == "custom"
+
+
+def test_median_reports_take_each_rows_median(tmp_path):
+    """``reconcile.median_reports`` (and ``main`` over ``chip_smoke.py``
+    logs): each row's measured seconds the median over the runs, its
+    relative error and the report text again; runs whose rows differ
+    raise. The committed H100 record is a median of at least 3 runs."""
+    import contextlib
+    import io
+    import pathlib
+
+    from repro_torch.obs import reconcile
+
+    predicted = {"dr": {"init_s": 0.5, "compute_s": 2.0},
+                 "dd": {"compute_s": 1.0}}
+
+    def one_run(scale):
+        rows = reconcile.reconcile(predicted, {
+            "dr": {"init_s": 0.25 * scale, "compute_s": 3.0 * scale},
+            "dd": {"compute_s": 1.5 * scale, "total_s": 2.0 * scale}})
+        return [{"mesh": "2x2", "rows": rows,
+                 "report": reconcile.report_text(rows)}]
+
+    runs = [one_run(s) for s in (1.0, 4.0, 2.0)]
+    got = reconcile.median_reports(runs)
+    want = one_run(2.0)[0]
+    assert got == [{**want, "median_of": 3}]
+    log = tmp_path / "run.log"
+    log.write_text("".join(
+        '{"phase": "other"}\n' + json.dumps(
+            {"phase": "planner_reconcile", "reports": r}) + "\n"
+        for r in runs))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        reconcile.main([str(log)])
+    assert json.loads(out.getvalue()) == got
+    other = one_run(1.0)
+    other[0]["rows"] = other[0]["rows"][1:]
+    with pytest.raises(ValueError, match="same rows"):
+        reconcile.median_reports(runs + [other])
+    path = (pathlib.Path(__file__).resolve().parent.parent / "results"
+            / "torch" / "reconcile_h100.json")
+    assert all(rep["median_of"] >= 3 for rep in json.load(open(path)))

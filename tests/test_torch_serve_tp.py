@@ -25,8 +25,8 @@ Held here, on (4, 2) and (2, 4) CPU meshes:
   different positions' pieces (one past the cache's end);
 * that the row path ran (``dryrun.serve_paths``, the attention and MLA
   ``tp_splits["flash-decoding"]``), the state came back as ``Sharded``
-  pieces under ``decode_state_specs``, and mamba2 / rwkv6 keep whole
-  leaves;
+  pieces under ``decode_state_specs``, mamba2 / rwkv6 take the rows too,
+  and weights placed without "model" keep whole leaves;
 * by the dry run's accounting on a mesh of positions: a decode step's
   collective bytes do not grow with the cache (no cache line leaves its
   position: only the queries, the combine's statistics, the new line and
@@ -336,11 +336,12 @@ def test_per_row_cursors(name, tag):
 # ------------------------------------------------------- which path runs
 @pytest.mark.parametrize("name,path", [
     ("mistral-nemo-12b", "row"), ("deepseek-v2-lite-16b", "row"),
-    ("rwkv6-3b", "whole leaves"), ("zamba2-7b", "whole leaves")])
+    ("rwkv6-3b", "row"), ("zamba2-7b", "row")])
 def test_layout_and_config_pick_the_serving_path(name, path):
     """``tests/test_torch_dryrun.py``'s ``DECODE_ARCHS`` on (4, 2): the
-    attention configs take the rows, mamba2 and rwkv6 keep the whole-leaf
-    path (float32, equal to the one-device functions at the bars)."""
+    attention configs and, since the mamba2 and rwkv6 mixers run on rows
+    (``tests/test_torch_serve_tp_recurrent.py``), zamba2 and rwkv6 take
+    the rows (float64, equal to the one-device functions at the bars)."""
     cfg = reduced(ARCHS[name])
     if path == "row":
         cfg = cfg.replace(compute_dtype="float64")
@@ -352,11 +353,13 @@ def test_layout_and_config_pick_the_serving_path(name, path):
     assert dict(dryrun.serve_paths) == {path: 1 + STEPS}
 
 
-def test_weights_whole_over_model_take_whole_leaves():
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "rwkv6-3b",
+                                  "zamba2-7b"])
+def test_weights_whole_over_model_take_whole_leaves(name):
     """Weights placed without "model" (the cache still split by sequence)
     take the whole-leaf path: bit for bit the one-device functions
     (float32)."""
-    cfg = reduced(ARCHS["mistral-nemo-12b"])
+    cfg = reduced(ARCHS[name])
     params = init_params(cfg, device=CPU, seed=0)
     toks, kw = _inputs(cfg, PROMPT + STEPS)
     out, st, w_st = _serve(cfg, params, _mesh("2x4"), toks, kw, PROMPT,
