@@ -38,7 +38,7 @@ second) and through the slot-swap continuous engine (the same prompts,
 its swaps and slot occupancy), and the ``reduced`` MLA and rwkv6 configs
 continuous against bucketed. ``lm_train`` takes one train step of each
 ``reduced`` config on the card against the CPU, trains ``smollm-360m`` at
-its widths (8 of its 32 blocks) for 20 steps through ``repro_torch.launch.train.main``
+its widths (4 of its 32 blocks) for 20 steps through ``repro_torch.launch.train.main``
 (async checkpoints every 10), then kills the run after step 10 and resumes
 it: the step-10 checkpoint restored bit for bit, the resumed step-20 loss
 against the uninterrupted one's. ``lm_sharded`` runs what exists only across
@@ -1866,9 +1866,10 @@ TRAIN_PARAM_ATOL_LR = 0.5
 RESUME_LOSS_RTOL = 1e-3
 TRAIN_ARGS = ["--arch", "smollm-360m", "--steps", "20", "--batch", "8",
               "--seq", "256", "--ckpt-every", "10"]
-# (b)'s depth: smollm-360m's 32 blocks cut to 8 (its widths kept; 125.8 M
-# parameters, a 1.51 GB checkpoint) for the script's time cap
-TRAIN_LAYERS = 8
+# (b)'s depth: smollm-360m's 32 blocks cut to 4 (its widths kept; 86.5 M
+# parameters, a 1.04 GB checkpoint) for the script's time cap (8 until the
+# sharded steps gathered a layer at a time, which lengthened lm_sharded)
+TRAIN_LAYERS = 4
 
 
 def train_batch(cfg, seed: int, batch: int = 2, seq: int = 16) -> dict:
@@ -2106,6 +2107,38 @@ TP_ARCH = "mistral-nemo-12b"
 TP_LAYERS = 2
 TP_BATCH = (4, 256)
 TP_MESH = (2, 2)
+# the sharded steps' peaks on "NVIDIA H100 80GB HBM3, 700.00 W" when each
+# position gathered every layer's pieces before its forward and held their
+# gradients to the end of the step, printed beside the layer-by-layer
+# step's: (d)'s step_peak_extra_bytes_sharded, (f)'s and (g)'s
+# peak_device_bytes_sharded
+GATHER_ALL_PEAKS = {"train": 6_062_826_496, "moe_train": 54_522_934_272,
+                    "tp_train": 64_764_169_216}
+
+
+def alloc_retries() -> int:
+    return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+
+def alloc_figures(r0: int) -> dict:
+    """The caching allocator since ``r0 = alloc_retries()``: its retries
+    (a failed ``cudaMalloc`` that frees the cache, synchronises and tries
+    again) and the most it has reserved since the last peak reset."""
+    return {"alloc_retries": alloc_retries() - r0,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+
+
+def grad_peak_extra(vag, p, b) -> int:
+    """The bytes one call of a sharded value-and-grad adds to what is
+    allocated (the phase that gathers and cuts the layers; the update's
+    new state comes after it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = vag(p, b)
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - held
 
 
 def card_mesh(shape, names) -> "object":
@@ -2394,7 +2427,9 @@ def sharded_training() -> dict:
     same weights and batches,
     the two taking turns step by step: the first 3 steps are compared, ms
     per step is the median of steps 2-6 (both paths' batches cycle); the
-    memory a step of each path adds to what both paths hold."""
+    memory a step of each path adds to what both paths hold, and what the
+    sharded value-and-grad alone adds (ZeRO-3: a layer gathered at a time),
+    beside the step that gathered every layer first."""
     from repro_torch.configs import ARCHS
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import attention, init_params
@@ -2402,6 +2437,7 @@ def sharded_training() -> dict:
     from repro_torch.train import optimizer as opt
     from repro_torch.distributed import collectives
     from repro_torch.train.train_step import (make_sharded_train_step,
+                                              make_sharded_value_and_grad,
                                               shard_train_state)
 
     t0 = time.perf_counter()
@@ -2446,6 +2482,8 @@ def sharded_training() -> dict:
                 metrics[tag].append({k: float(v) for k, v in m.items()})
             if i == 0:
                 after1[tag] = sh.gather_tree(p)
+    grad_peak = grad_peak_extra(make_sharded_value_and_grad(cfg, mesh),
+                                paths["sharded"][1][0], batches[0])
     del paths
     tp = tp_route(cfg, mesh, calls["sharded"])
     lr1 = float(opt.lr_at(ocfg, 1))
@@ -2488,6 +2526,9 @@ def sharded_training() -> dict:
             "sharded_over_one_device": med["sharded"] / med["one_device"],
             "step_peak_extra_bytes_one_device": peaks["one_device"],
             "step_peak_extra_bytes_sharded": peaks["sharded"],
+            "step_peak_extra_bytes_sharded_gathering_all_layers":
+                GATHER_ALL_PEAKS["train"],
+            "grad_peak_extra_bytes_sharded": grad_peak,
             "peak_device_bytes_both_paths": peak_all,
             # parameters and both moments, fp32
             "state_bytes_one_path": 3 * 4 * n_params,
@@ -2496,15 +2537,17 @@ def sharded_training() -> dict:
 
 def tp_route(cfg, mesh, calls) -> dict:
     """Whether the sharded steps just run were tensor-parallel, from what
-    ran: the reduce-scatter of their gradients (``collective_calls``; only
-    the tensor-parallel step makes it) and the attention splits that
+    only that route runs: the attention splits that
     ``models.attention.attn_apply_tp`` counted (``tp_splits``: whole
-    heads, the query heads of one KV head, or through a head)."""
+    heads, the query heads of one KV head, or through a head; the
+    whole-leaf step counts none); and the step's gradient cuts
+    (``collective_calls``: every sharded step reduce-scatters its
+    layers)."""
     from repro_torch.models import attention
 
     splits = dict(attention.tp_splits)
-    return {"tensor_parallel": calls.get("reduce-scatter", 0) > 0
-            and bool(splits),
+    return {"tensor_parallel": bool(splits)
+            and calls.get("reduce-scatter", 0) > 0,
             "model_axis": mesh.shape["model"],
             "heads": [cfg.n_heads, cfg.n_kv_heads],
             "attention_splits": splits}
@@ -2521,7 +2564,8 @@ def tp_whole_heads_training() -> dict:
     made; each path one warm-up step, then one step from the same state
     timed by CUDA events; the step-1 loss, grad norm and parameters
     compared under (d)'s bars; the collective calls of the sharded step;
-    the peak device memory of each path."""
+    the peak device memory of each path, what a sharded step adds to its
+    state and what its value-and-grad alone adds."""
     from repro_torch.configs import ARCHS
     from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding as sh
@@ -2529,6 +2573,7 @@ def tp_whole_heads_training() -> dict:
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import (make_sharded_train_step,
+                                              make_sharded_value_and_grad,
                                               shard_train_state)
 
     t0 = time.perf_counter()
@@ -2543,6 +2588,7 @@ def tp_whole_heads_training() -> dict:
         cfg, seed=0, batch=TP_BATCH[0], seq=TP_BATCH[1]).items()}
 
     def timed(step, p, s):
+        r0 = alloc_retries()
         step(p, s, b)                               # warm-up, dropped
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2551,7 +2597,10 @@ def tp_whole_heads_training() -> dict:
             out = step(p, s, b)
             end.record()
         torch.cuda.synchronize()
+        alloc.append(alloc_figures(r0))
         return out[0], out[2], start.elapsed_time(end), count.calls
+
+    alloc = []
 
     st = opt.init(params)
     torch.cuda.synchronize()
@@ -2563,11 +2612,14 @@ def tp_whole_heads_training() -> dict:
     del params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held2 = torch.cuda.memory_allocated()
     attention.tp_splits.clear()
     p2, m2, ms2, calls = timed(make_sharded_train_step(cfg, ocfg, mesh), ps,
                                ss)
     peak2 = torch.cuda.max_memory_allocated()
     tp = tp_route(cfg, mesh, calls)
+    grad_peak = grad_peak_extra(make_sharded_value_and_grad(cfg, mesh), ps,
+                                b)
     del ps, ss
     lr1 = float(opt.lr_at(ocfg, 1))
     dp = max(float((sh.gather(a) - w).abs().max())
@@ -2604,8 +2656,13 @@ def tp_whole_heads_training() -> dict:
                      "params_atol_over_lr": SHARDED_PARAM_ATOL_LR},
             "step_ms_one_device": ms1, "step_ms_sharded": ms2,
             "sharded_over_one_device": ms2 / ms1,
+            "allocator": dict(zip(("one_device", "sharded"), alloc)),
             "peak_device_bytes_one_device": peak1,
             "peak_device_bytes_sharded": peak2,
+            "peak_device_bytes_sharded_gathering_all_layers":
+                GATHER_ALL_PEAKS["tp_train"],
+            "step_peak_extra_bytes_sharded": peak2 - held2,
+            "grad_peak_extra_bytes_sharded": grad_peak,
             "ok": ok, "seconds": time.perf_counter() - t0}
 
 
@@ -2631,9 +2688,10 @@ def moe_sharded_training() -> dict:
     same state; the step-1 loss, grad norm and parameters compared, the MoE
     layer's routing (expert ids, keep masks, slots) compared exactly, its
     drops counted; a control with each batch shard's capacity sized and
-    counted from its own tokens; the peak device memory of each path; what
-    ran: a reduce-scatter call (only the tensor-parallel step makes one)
-    and the splits ``moe.tp_splits`` and ``mla.tp_splits`` counted."""
+    counted from its own tokens; the peak device memory of each path, what
+    a sharded step adds to its state and what its value-and-grad alone
+    adds; what ran: the splits ``moe.tp_splits`` and ``mla.tp_splits``
+    counted (only the tensor-parallel step makes them)."""
     from repro_torch.configs import ARCHS
     from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding as sh
@@ -2641,6 +2699,7 @@ def moe_sharded_training() -> dict:
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import (make_sharded_train_step,
+                                              make_sharded_value_and_grad,
                                               shard_train_state)
 
     t0 = time.perf_counter()
@@ -2657,6 +2716,7 @@ def moe_sharded_training() -> dict:
     T = b["tokens"].numel()
 
     def timed(step, p, s):
+        r0 = alloc_retries()
         step(p, s, b)                               # warm-up, dropped
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2666,7 +2726,10 @@ def moe_sharded_training() -> dict:
             out = step(p, s, b)
             end.record()
         torch.cuda.synchronize()
+        alloc.append(alloc_figures(r0))
         return out[0], out[2], start.elapsed_time(end), routes, count.calls
+
+    alloc = []
 
     st = opt.init(params)
     torch.cuda.synchronize()
@@ -2683,12 +2746,15 @@ def moe_sharded_training() -> dict:
     del params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held2 = torch.cuda.memory_allocated()
     moe.tp_splits.clear()
     mla.tp_splits.clear()
     p2, m2, ms2, r2, calls = timed(make_sharded_train_step(cfg, ocfg, mesh),
                                    ps, ss)
     peak2 = torch.cuda.max_memory_allocated()
     ran = moe_tp_route(calls)
+    grad_peak = grad_peak_extra(make_sharded_value_and_grad(cfg, mesh), ps,
+                                b)
     del ps, ss
     lr1 = float(opt.lr_at(ocfg, 1))
     dp = max(float((sh.gather(a) - w).abs().max())
@@ -2748,22 +2814,28 @@ def moe_sharded_training() -> dict:
                      "routing": "equal"},
             "step_ms_one_device": ms1, "step_ms_sharded": ms2,
             "sharded_over_one_device": ms2 / ms1,
+            "allocator": dict(zip(("one_device", "sharded"), alloc)),
             "peak_device_bytes_one_device": peak1,
             "peak_device_bytes_sharded": peak2,
+            "peak_device_bytes_sharded_gathering_all_layers":
+                GATHER_ALL_PEAKS["moe_train"],
+            "step_peak_extra_bytes_sharded": peak2 - held2,
+            "grad_peak_extra_bytes_sharded": grad_peak,
             "ok": ok, "seconds": time.perf_counter() - t0}
 
 
 def moe_tp_route(calls) -> dict:
     """Whether the sharded step just run was tensor-parallel, from what
-    ran: a reduce-scatter call (``collective_calls``; only the
-    tensor-parallel step makes one) and the splits that
-    ``models.moe.moe_apply_tp`` / ``moe_apply_a2a_tp`` and
-    ``models.mla.mla_apply_tp`` counted (``tp_splits``)."""
+    only that route runs: the splits that ``models.moe.moe_apply_tp`` /
+    ``moe_apply_a2a_tp`` and ``models.mla.mla_apply_tp`` counted
+    (``tp_splits``; the whole-leaf step counts none); and the step's
+    gradient cuts (``collective_calls``: every sharded step
+    reduce-scatters its layers)."""
     from repro_torch.models import mla, moe
 
     splits = dict(moe.tp_splits)
-    return {"tensor_parallel": calls.get("reduce-scatter", 0) > 0
-            and bool(splits), "moe_splits": splits,
+    return {"tensor_parallel": bool(splits)
+            and calls.get("reduce-scatter", 0) > 0, "moe_splits": splits,
             "mla_splits": dict(mla.tp_splits)}
 
 
@@ -2780,7 +2852,7 @@ def one_moe_step(step, p, s, b, hint=None) -> dict:
     """One step of ``step`` from ``(p, s)`` on ``b`` (under ``hint_mesh``
     when given): parameters after it gathered whole, metrics, routes per
     MoE layer joined over the batch shards, collective calls, ms by CUDA
-    events."""
+    events, the bytes the step adds to what is allocated."""
     import contextlib
 
     from repro_torch.distributed import collectives
@@ -2791,17 +2863,21 @@ def one_moe_step(step, p, s, b, hint=None) -> dict:
         contextlib.nullcontext()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     with ctx, moe.recording_routes() as routes, \
             collectives.counting() as count:
         start.record()
         new_p, _, m = step(p, s, b)
         end.record()
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
     return {"params": {k: sh.gather(a) if isinstance(a, sh.Sharded) else a
                        for k, a in sorted_paths(new_p)},
             "metrics": {k: float(v) for k, v in m.items()},
             "routes": routes, "calls": count.calls,
-            "ms": start.elapsed_time(end)}
+            "ms": start.elapsed_time(end), "step_peak_extra_bytes": peak}
 
 
 def moe_steps_agree(got: dict, want: dict, n_shards: tuple, lr1: float
@@ -2846,10 +2922,10 @@ def a2a_row_training() -> dict:
     tensor-parallel step, whose MoE layers run the all-to-all inside each
     row of positions on their own experts (``moe_apply_a2a_tp``), against
     the port's whole-leaf step under the same mesh (the leaves placed
-    without "model": ``_moe_global_step``, whose a2a reads slices of the
-    whole weights), at the config's capacity and at 0.5: one step each
-    from the same state, compared under (d)'s bars, the routing equal
-    exactly, the drops counted, what ran checked."""
+    without "model": each batch shard gathers whole layers, whose a2a
+    reads slices of the whole weights), at the config's capacity and at
+    0.5: one step each from the same state, compared under (d)'s bars, the
+    routing equal exactly, the drops counted, what ran checked."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import init_params, moe
@@ -2888,10 +2964,11 @@ def a2a_row_training() -> dict:
                 and (cap is None or sum(agree["dropped_slots"]) > 0))
         out[str(cfg.capacity_factor)] = {
             **agree, "ok": good,
-            "tp": {k: runs["tp"][k] for k in ("tensor_parallel",
-                                              "moe_splits", "calls")},
+            "tp": {k: runs["tp"][k] for k in (
+                "tensor_parallel", "moe_splits", "calls",
+                "step_peak_extra_bytes")},
             "whole_leaf": {k: runs["whole_leaf"][k] for k in (
-                "tensor_parallel", "calls")}}
+                "tensor_parallel", "calls", "step_peak_extra_bytes")}}
         ok = ok and good
     return {"arch": "dbrx-132b (reduced)", "batch": list(A2A_ROW_BATCH),
             "mesh": mesh.shape, "capacities": out,
@@ -2903,13 +2980,15 @@ def a2a_row_training() -> dict:
 
 
 def whole_leaf_moe_training() -> dict:
-    """The whole-leaf MoE step (``_moe_global_step``) kept on the card:
-    reduced ``deepseek-v2-lite-16b`` (fp32) on a (4,) ("data",) mesh, no
-    "model" axis, so every batch shard gathers the leaves whole, against
+    """The whole-leaf MoE step kept on the card: reduced
+    ``deepseek-v2-lite-16b`` (fp32) on a (4,) ("data",) mesh, no "model"
+    axis, so every batch shard gathers whole layers, against
     ``make_train_step`` from the same weights: one step each, (d)'s bars,
-    routing equal exactly, drops counted, no reduce-scatter call."""
+    routing equal exactly, drops counted; no tensor-parallel split counted
+    (``tp_splits`` of attention, MLA and MoE), its layers' gradients
+    reduce-scattered; the bytes each step adds."""
     from repro_torch.configs import ARCHS, reduced
-    from repro_torch.models import init_params
+    from repro_torch.models import attention, init_params, mla, moe
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import (make_sharded_train_step,
@@ -2923,6 +3002,8 @@ def whole_leaf_moe_training() -> dict:
     b = {k: v.cuda() for k, v in train_batch(
         cfg, seed=0, batch=A2A_ROW_BATCH[0], seq=A2A_ROW_BATCH[1]).items()}
     runs = {}
+    for splits in (attention.tp_splits, mla.tp_splits, moe.tp_splits):
+        splits.clear()
     for tag, step, (p, s) in (
             ("one_device", make_train_step(cfg, ocfg),
              (params, opt.init(params))),
@@ -2934,12 +3015,17 @@ def whole_leaf_moe_training() -> dict:
                             (WHOLE_LEAF_MESH[0], 1),
                             float(opt.lr_at(ocfg, 1)))
     calls = runs["sharded"]["calls"]
-    ok = (agree["ok"] and calls.get("reduce-scatter", 0) == 0
+    splits = {"attention": dict(attention.tp_splits),
+              "mla": dict(mla.tp_splits), "moe": dict(moe.tp_splits)}
+    ok = (agree["ok"] and not any(splits.values())
+          and calls.get("reduce-scatter", 0) > 0
           and sum(agree["dropped_slots"]) > 0)
     return {"arch": cfg.name, "capacity_factor": cfg.capacity_factor,
             "batch": list(A2A_ROW_BATCH), "mesh": mesh.shape, **agree,
-            "collective_calls_sharded_step": calls, "ok": ok,
-            "seconds": time.perf_counter() - t0}
+            "tp_splits": splits, "collective_calls_sharded_step": calls,
+            "step_peak_extra_bytes": {
+                k: runs[k]["step_peak_extra_bytes"] for k in runs},
+            "ok": ok, "seconds": time.perf_counter() - t0}
 
 
 def measured_peaks() -> dict:
@@ -3053,10 +3139,11 @@ def phase_lm_sharded(dev: dict, lm_train_ms: float) -> None:
 
 # ------------------------------------------------------------ lm_remat
 REMAT_ARCH = "smollm-360m"
-# (b) and (c) run (and the dry run counts) smollm-360m at its widths on 16
+# (b) and (c) run (and the dry run counts) smollm-360m at its widths on 8
 # of its 32 blocks: the cut that pays for the mamba2 / rwkv6 serving checks
-# (e) and the planner's third reconcile repeat in the script's time cap
-REMAT_LAYERS = 16
+# (e), the planner's third reconcile repeat and the layer-by-layer sharded
+# steps in the script's time cap
+REMAT_LAYERS = 8
 REMAT_SHORT = (1, 1024)      # (b): both steps fit the card
 # (c): the reference's train_4k row length; B the largest of 4, 2, 1 whose
 # dry-run peak is under the card's capacity (the dry run's 24.9 GB at 4 x

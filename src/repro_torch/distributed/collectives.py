@@ -12,8 +12,10 @@ the parameter placement of ``sharding`` and the compressed gradient sum of
 ``train.grad_compress``; ``all_reduce``, ``pmax_row`` and ``all_gather_row``
 (a copy of the result on every member of a row of positions) the tensor
 parallel layers, ``broadcast_row`` the row decode's one-member results,
-``exchange`` (an all-to-all of uneven parts) the row's column trades, and
-``reduce_scatter`` the tensor-parallel step's gradients. All are built
+``exchange`` (an all-to-all of uneven parts) the row's column trades,
+``reduce_scatter`` the row's column sums and ``reduce_scatter_into`` (its
+members one at a time, the sums kept in the pieces) the sharded train
+step's gradients. All are built
 of ``torch`` ops that autograd differentiates (``.to``, indexing,
 ``torch.cat``, ``torch.stack``, adds).
 
@@ -192,6 +194,23 @@ def reduce_scatter(shards: np.ndarray, dims: Union[int, Sequence[int]],
                 acc = part if acc is None else acc + part
             out[idx + (i,)] = acc
     return out
+
+
+def reduce_scatter_into(pairs, first: bool) -> None:
+    """One member's turn in a ``reduce_scatter`` whose sums stay where
+    their pieces live: for each ``(part, into)`` of ``pairs`` (the member's
+    slice of a piece, the piece's running sum), ``part`` moved to
+    ``into``'s device and added into it in place; ``first``: the member
+    that opens the sums, its parts copied in. Members taking their turns
+    in row-major order give ``reduce_scatter``'s bits, and no member's
+    whole tensor waits for the others'."""
+    _call("reduce-scatter")
+    for part, into in pairs:
+        moved = _move(part, _mesh.device_of(into), "reduce-scatter")
+        if first:
+            into.copy_(moved)
+        else:
+            into.add_(moved)
 
 
 # ------------------------------------------- over a row of positions (TP)

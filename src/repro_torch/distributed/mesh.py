@@ -234,6 +234,14 @@ def _recompute(tr: Optional[_Tracking], pos: Optional[int], row):
         yield
 
 
+def tracked():
+    """The tracker's function mode, entered anew (nothing without a
+    tracker): what a custom backward that moves tensors between positions
+    runs under, since autograd runs it with no function mode."""
+    tr = _TRACKING
+    return tr.function_mode() if tr is not None else contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def at(device):
     """While open, ``device``'s position is the one whose work runs now:

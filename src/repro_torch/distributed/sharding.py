@@ -17,7 +17,9 @@ the reference hands a spec tree to XLA (``NamedSharding``), the port places
 the pieces itself: ``shard_tree`` cuts each leaf into one piece per mesh
 position along its spec's axes, each on its shard's device (a ``Sharded``
 leaf), and ``gather_tree`` puts the leaves back together through
-``collectives.all_gather``.
+``collectives.all_gather``. ``Zero3`` is the sharded train step's side of
+it: a stacked leaf gathered a layer at a time (``gather_layer``) and each
+gradient cut into sums that live with the pieces.
 """
 from __future__ import annotations
 
@@ -606,36 +608,191 @@ def split_dim(spec: P, axis: str) -> Optional[int]:
     return None
 
 
-def reduce_scatter_leaf(like: Sharded, parts: np.ndarray) -> Sharded:
-    """The tensor-parallel step's gradient of ``like``, cut as ``like`` is.
-    ``parts`` is a (batch shards, "model") array of each position's
-    gradient of its piece (``gather(..., index={"model": j})``'s shape).
-    Each batch shard's gradient of a leaf not split over "model" is first
-    the sum of its row's parts in order (``psum`` onto the row's first
-    position); the pieces are then the sum over batch shards in row-major
-    order, cut over "data" (``collectives.reduce_scatter``: the psum's
-    bits, each piece added where it lives)."""
-    spec, mesh = like.spec, like.mesh
-    names = spec.mesh_axes()
-    if not set(names) <= {FSDP, TP} or len(names) != len(set(names)):
-        raise NotImplementedError(f"a tensor-parallel gradient of spec "
-                                  f"{spec}")
-    if TP not in names:
-        parts = collectives.psum(parts, 1)[:, None]
-    devices = _spec_devices(spec, mesh)
-    # the pieces' devices as (model, data): one reduce-scatter per model
-    # position, over the batch shards, cut into the "data" pieces
-    order = [names.index(a) for a in (TP, FSDP) if a in names]
-    devs = np.transpose(devices, order).reshape(
-        (mesh.shape[TP] if TP in names else 1, -1))
-    dim = split_dim(spec, FSDP)
-    pieces = np.empty(devs.shape, dtype=object)
-    for j in range(devs.shape[0]):
-        pieces[j] = collectives.reduce_scatter(
-            parts[:, j], 0, 0 if dim is None else dim, devs[j])
-    pieces = np.transpose(pieces.reshape(
-        np.transpose(devices, order).shape), np.argsort(order))
-    return Sharded(pieces, spec, mesh, like.shape, like.dtype)
+def gather_layer(leaf: Sharded, i: int, device=None,
+                 index=None) -> torch.Tensor:
+    """Layer ``i`` of a stacked ``Sharded`` leaf (axis 0 the layers, which
+    ``param_specs`` never splits), as ``gather`` gives the whole leaf: the
+    pieces' ``[i]`` views gathered over the spec's other axes onto
+    ``device`` (``collectives.all_gather``), an ``index`` axis keeping its
+    position's piece."""
+    if leaf.spec and leaf.spec[0] is not None:
+        raise NotImplementedError(
+            f"a layer of a stacked leaf of spec {leaf.spec}: its layer axis "
+            f"is split")
+    views = np.empty(leaf.pieces.shape, dtype=object)
+    for idx in np.ndindex(views.shape):
+        views[idx] = leaf.pieces[idx][i]
+    return gather(Sharded(views, P(*leaf.spec[1:]), leaf.mesh,
+                          leaf.shape[1:], leaf.dtype), device, index)
+
+
+# ------------------------------------------------------------ ZeRO-3
+def _dict_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _dict_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _dict_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _dict_leaves(v)
+    else:
+        yield tree
+
+
+class _Sums:
+    """One ``Sharded`` leaf's gradient in a ZeRO-3 step: one tensor per
+    piece, the piece's size, where the piece lives (made at the leaf's
+    first gradient), summed in place as backward makes each layer's (or,
+    ``layer=None``, the whole leaf's) gradient at each batch shard; and
+    the layers whose sum has begun."""
+
+    __slots__ = ("leaf", "pieces", "begun")
+
+    def __init__(self, leaf: Sharded):
+        self.leaf = leaf
+        self.pieces = None
+        self.begun = set()
+
+    def gather(self, layer, device, index) -> torch.Tensor:
+        with _mesh.at(device):
+            if layer is None:
+                return gather(self.leaf, device, index)
+            return gather_layer(self.leaf, layer, device, index)
+
+    def add(self, layer, targets, grads) -> None:
+        """One batch shard's gradient of ``layer`` (one per target position
+        ``(device, index)``, each of ``gather``'s shape there) cut into the
+        pieces and added where they live: a position's own "model" piece
+        cut over the other axes; a leaf not split by ``index`` first
+        summed over the positions in order (``psum``: a tensor-parallel
+        row's sum) and then cut. Batch shards that add in row-major order
+        give ``collectives.reduce_scatter``'s bits."""
+        leaf = self.leaf
+        if self.pieces is None:
+            self.pieces = np.empty(leaf.pieces.shape, dtype=object)
+            for idx in np.ndindex(leaf.pieces.shape):
+                self.pieces[idx] = torch.empty_like(leaf.pieces[idx])
+        spec = leaf.spec if layer is None else P(*leaf.spec[1:])
+        names = spec.mesh_axes()
+        if len(grads) > 1 and not any(n in (targets[0][1] or ())
+                                      for n in names):
+            grads = [collectives.psum(collectives.shard_array(grads),
+                                      0).item()]
+            targets = targets[:1]
+        pairs = []
+        for g, (_, index) in zip(grads, targets):
+            index = index or {}
+            sub = P(*(None if any(n in index for n in P.axes_of(e)) else e
+                      for e in spec))
+            for idx in np.ndindex(self.pieces.shape):
+                if any(index.get(n, k) != k for n, k in zip(names, idx)):
+                    continue
+                into = self.pieces[idx]
+                pairs.append((_cut(g, sub, leaf.mesh, tuple(
+                    k for n, k in zip(names, idx) if n not in index)),
+                    into if layer is None else into[layer]))
+        collectives.reduce_scatter_into(pairs, layer not in self.begun)
+        self.begun.add(layer)
+
+    def result(self) -> Sharded:
+        """The summed pieces; a layer (a leaf) no gradient reached is
+        zeros, as ``jax.value_and_grad`` gives."""
+        leaf = self.leaf
+        out = np.empty(leaf.pieces.shape, dtype=object)
+        for idx in np.ndindex(out.shape):
+            piece = leaf.pieces[idx]
+            with _mesh.at(_mesh.device_of(piece)):
+                if self.pieces is None:
+                    out[idx] = torch.zeros_like(piece)
+                    continue
+                out[idx] = self.pieces[idx]
+                if None not in self.begun:
+                    for i in range(leaf.shape[0]):
+                        if i not in self.begun:
+                            out[idx][i].zero_()
+        return Sharded(out, leaf.spec, leaf.mesh, leaf.shape, leaf.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    """A leaf's layer (the whole leaf: ``layer=None``) gathered onto each
+    target position, and in backward its gradient cut into the leaf's
+    pieces and added where they live (``_Sums.add``), then freed: no
+    gradient the size of a gathered leaf outlives its layer's backward.
+    ``anchor`` is a tensor that requires grad, so that the outputs do."""
+
+    @staticmethod
+    def forward(ctx, anchor, sums, layer, targets):
+        ctx.sums, ctx.layer, ctx.targets = sums, layer, targets
+        # an alias: a piece handed out as it is stays a leaf of no graph
+        return tuple(sums.gather(layer, dev, index).detach()
+                     for dev, index in targets)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with _mesh.tracked():
+            ctx.sums.add(ctx.layer, ctx.targets, grads)
+        return None, None, None, None
+
+
+def _gathered(sums, layer, targets, anchor) -> list:
+    """A subtree's ``layer`` (``None``: its whole leaves) gathered through
+    ``_Gather`` onto every target: one tree per target."""
+    outs = _dict_map(lambda s: _Gather.apply(anchor, s, layer, targets), sums)
+    return [_dict_map(lambda o: o[j], outs) for j in range(len(targets))]
+
+
+class Layers:
+    """A stacked subtree of a ZeRO-3 step's parameters (axis 0 the layers)
+    as the model's block loops take it: ``layer(i)`` gathers layer ``i`` of
+    each leaf onto every target position (one tree per target), and its
+    backward cuts that layer's gradient into the pieces. A block takes its
+    layer inside its checkpoint (``models.transformer``), so that the
+    checkpoint keeps no gathered weight and the recompute gathers again."""
+
+    def __init__(self, sums, targets, anchor):
+        self.sums, self.targets, self.anchor = sums, targets, anchor
+
+    @property
+    def depth(self) -> int:
+        return next(_dict_leaves(self.sums)).leaf.shape[0]
+
+    def layer(self, i: int) -> list:
+        return _gathered(self.sums, i, self.targets, self.anchor)
+
+
+class Zero3:
+    """One sharded train step's parameters and gradients, ZeRO-3 as GSPMD
+    compiles the reference's scanned step: ``trees(targets)`` hands a batch
+    shard its parameter trees, one per target position ``(device,
+    index)`` (a tensor-parallel row's, ``index={"model": j}``, or one
+    device's, ``index=None``): each ``stacked`` subtree as ``Layers``,
+    gathered a layer at a time inside the blocks, each other leaf gathered
+    now; backward adds each gradient into the leaf's pieces as it is made
+    (``_Sums``, the owner of the step's accumulators), and ``grads()``
+    gives them as ``Sharded`` leaves cut as the parameters are."""
+
+    def __init__(self, params, stacked=()):
+        self.sums = _dict_map(_Sums, params)
+        self.stacked = tuple(stacked)
+        first = next(_dict_leaves(params)).mesh.first_device
+        with _mesh.at(first):
+            self.anchor = torch.zeros((), device=first, requires_grad=True)
+
+    def trees(self, targets) -> list:
+        targets = list(targets)
+        out = [{} for _ in targets]
+        for key, sub in self.sums.items():
+            per = ([Layers(sub, targets, self.anchor)] * len(targets)
+                   if key in self.stacked
+                   else _gathered(sub, None, targets, self.anchor))
+            for t, p in zip(out, per):
+                t[key] = p
+        return out
+
+    def grads(self):
+        return _dict_map(lambda s: s.result(), self.sums)
 
 
 def shard_tree(tree, specs, mesh: Mesh):

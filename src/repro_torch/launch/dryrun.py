@@ -46,12 +46,16 @@ batch shard over its row of positions, each position computing with its
 "model" pieces, as a GSPMD compile partitions it: Megatron's column / row
 splits, MLA's heads, ``E/M`` whole experts a position (dbrx's all-to-all
 inside the row under the hint mesh), the embedding, head and
-cross-entropy by vocabulary. A position still gathers all its pieces over
-"data" before the forward and holds their gradients until the
-reduce-scatter, where GSPMD gathers layer by layer (ROADMAP §C.7). An
-``fsdp`` config (zamba2, rwkv6, smollm, starcoder2) splits its batch over
-"model" and gathers whole leaves per batch shard, as the reference's
-layout does. The sharded prefill and decode of every config
+cross-entropy by vocabulary. An ``fsdp`` config (zamba2, rwkv6, smollm,
+starcoder2) splits its batch over "model" and computes whole leaves per
+batch shard, as the reference's layout does. Either way the step is
+ZeRO-3, as GSPMD compiles the reference's scanned step: each block gathers
+its own layer over "data" inside its checkpoint (again in the recompute)
+and backward cuts that layer's gradient into piece-size sums at the
+pieces' positions as it makes it (``sharding.Zero3``), so the count sees
+a gathered layer freed after its block, the sums at the pieces, and each
+layer's cut as ``reduce-scatter`` traffic. The sharded prefill and decode
+of every config
 ``tp_covers(cfg, serving=True)`` takes (serving splits the weights over
 "model": the ``tp`` configs, and zamba2 and rwkv6 with Mamba2's packed
 ``in_proj`` and heads, RWKV6's projections and heads and zamba2's shared

@@ -408,9 +408,8 @@ def prefill_tp(cfg, ps, tokens, max_seq: int, vision_embeds=None,
         cross = (enc_outs[0], *_cross_kv_tp(cfg, ps, enc_outs))
     blocks = [p["blocks"] for p in ps]
     for i in range(cfg.n_layers):
-        xs, _ = transformer._block_tp(
-            cfg, ps, transformer._layer_tp(blocks, i), xs, positions, i,
-            enc_outs, states)
+        xs, _ = transformer._block_tp(cfg, ps, blocks, xs, positions, i,
+                                      enc_outs, states)
     xs = transformer._norm_tp(cfg, [x[:, -1:] for x in xs],
                               [p["final_norm"] for p in ps])
     logits = layers.logits_from_hidden_tp(cfg, ps, xs)

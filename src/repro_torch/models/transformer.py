@@ -3,11 +3,14 @@
 Parameters keep the reference's tree: per-layer weights are stacked on a
 leading L axis (``params["blocks"][name]`` is ``(L, ...)``), and the
 reference's ``lax.scan`` over that axis is a Python loop here, each layer's
-weights a view ``a[i]``. With ``remat`` and ``scan_layers`` set (every full
-config), a forward under autograd runs each block of that loop (and of the
-Whisper encoder's) through a non-reentrant ``torch.utils.checkpoint``, as
-the reference wraps its scan body in ``jax.checkpoint``: backward keeps the
-blocks' inputs and recomputes one block at a time, and the numbers do not
+weights a view ``a[i]``, taken by the block itself (``layer``). The sharded
+train step hands a stacked subtree over as a ``sharding.Layers``, whose
+``layer(i)`` gathers that layer's pieces (ZeRO-3). With ``remat`` and
+``scan_layers`` set (every full config), a forward under autograd runs each
+block of that loop (and of the Whisper encoder's) through a non-reentrant
+``torch.utils.checkpoint``, as the reference wraps its scan body in
+``jax.checkpoint``: backward keeps the blocks' inputs and recomputes one
+block at a time, its layer taken (gathered) again, and the numbers do not
 move. A config with ``scan_layers=False`` is not checkpointed (the
 reference's unrolled loop is not), and nothing changes without autograd
 (prefill, decode, serving).
@@ -133,9 +136,24 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     return params
 
 
+# the stacked subtrees of the parameter tree (axis 0 the layers)
+STACKED = ("blocks", "enc_blocks", "dense_mlp")
+
+
 def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copy)."""
+    """Layer ``i`` of a stacked tree (views, no copy), or of a ZeRO-3
+    step's ``sharding.Layers`` on one device (gathered there)."""
+    if isinstance(tree, _sh.Layers):
+        (one,) = tree.layer(i)
+        return one
     return tree_map(lambda a: a[i], tree)
+
+
+def depth(tree) -> int:
+    """The number of layers of a stacked tree or ``sharding.Layers``."""
+    if isinstance(tree, _sh.Layers):
+        return tree.depth
+    return next(leaves(tree)).shape[0]
 
 
 def shared_site(cfg, i: int) -> bool:
@@ -189,8 +207,12 @@ def apply_channel(cfg, params, p, x, layer_idx: int
     return layers.mlp_apply(cfg, p["mlp"], x), zero
 
 
-def _block_apply(cfg, params, bp, x, positions, layer_idx, enc_out=None):
-    """One block: mixer + (optional shared attn / cross attn) + channel."""
+def _block_apply(cfg, params, blocks, x, positions, layer_idx,
+                 enc_out=None):
+    """Block ``layer_idx`` of the stacked ``blocks``: mixer + (optional
+    shared attn / cross attn) + channel. It takes its layer itself, so that
+    under ``remat`` the layer is taken inside the checkpoint."""
+    bp = layer(blocks, layer_idx)
     x = x + _apply_mixer(cfg, bp, layers.apply_norm(cfg, x, bp["norm1"]),
                          positions)
     if shared_site(cfg, layer_idx):
@@ -233,6 +255,12 @@ def _rematted(cfg) -> bool:
 
 
 def _run_block(remat: bool, fn, *args):
+    """``fn(*args)``, through ``checkpoint`` under ``remat``. A block
+    function takes its stacked tree and its index and takes its layer
+    itself: were the layer's tensors (a ZeRO-3 step's gathered weights)
+    arguments, the checkpoint would keep them until backward; so the
+    recompute takes (gathers) the layer again, as ``jax.checkpoint`` of
+    the reference's scan body does."""
     if not remat:
         return fn(*args)
     return _checkpoint.checkpoint(fn, *args, use_reentrant=False,
@@ -242,17 +270,17 @@ def _run_block(remat: bool, fn, *args):
 def _scan_blocks(cfg, params, blocks, x, positions, enc_out=None):
     """The loop over the stacked blocks, each one checkpointed under
     ``remat`` (``_rematted``). Returns (x, aux)."""
-    L = next(leaves(blocks)).shape[0]
     remat = _rematted(cfg)
     aux = torch.zeros((), dtype=_F32, device=x.device)
-    for i in range(L):
-        x, a = _run_block(remat, _block_apply, cfg, params, layer(blocks, i),
-                          x, positions, i, enc_out)
+    for i in range(depth(blocks)):
+        x, a = _run_block(remat, _block_apply, cfg, params, blocks, x,
+                          positions, i, enc_out)
         aux = aux + a
     return x, aux
 
 
-def _enc_block(cfg, enc_cfg, params, bp, x, positions, i):
+def _enc_block(cfg, enc_cfg, params, blocks, x, positions, i):
+    bp = layer(blocks, i)
     x = x + attention.attn_apply(
         enc_cfg, bp["attn"], layers.apply_norm(cfg, x, bp["norm1"]),
         positions, causal=False, use_rope=False)
@@ -272,9 +300,9 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     enc_cfg = cfg.replace(mixer="attn", mla=False, mlp="gelu")
     blocks = params["enc_blocks"]
     remat = _rematted(cfg)
-    for i in range(next(leaves(blocks)).shape[0]):
-        x = _run_block(remat, _enc_block, cfg, enc_cfg, params,
-                       layer(blocks, i), x, positions, i)
+    for i in range(depth(blocks)):
+        x = _run_block(remat, _enc_block, cfg, enc_cfg, params, blocks, x,
+                       positions, i)
     return layers.apply_norm(cfg, x, params["enc_norm"])
 
 
@@ -344,6 +372,11 @@ def _add(xs, ys):
 
 
 def _layer_tp(trees, i: int):
+    """Layer ``i`` of each position's stacked tree; a ZeRO-3 step's row
+    shares one ``sharding.Layers``, which gathers the layer onto every
+    position of the row at once."""
+    if isinstance(trees[0], _sh.Layers):
+        return trees[0].layer(i)
     return [layer(t, i) for t in trees]
 
 
@@ -421,13 +454,15 @@ def apply_channel_tp(cfg, ps, bps, xs, layer_idx: int):
     return layers.mlp_apply_tp(cfg, [b["mlp"] for b in bps], xs), zero
 
 
-def _block_tp(cfg, ps, bps, xs, positions, layer_idx, enc_outs=None,
+def _block_tp(cfg, ps, blocks, xs, positions, layer_idx, enc_outs=None,
               states=None):
-    """``_block_apply`` over the row; returns (xs, aux). With ``states``
+    """``_block_apply`` over the row (``blocks``: each position's stacked
+    tree); returns (xs, aux). With ``states``
     (``model.prefill_tp``'s: one ``DecodeState`` per position of
     ``mesh.cache_row()``) the block also writes the prompt into them, in
     place: its layer's and its shared site's cache pieces
     (``_apply_mixer_tp``) and an rwkv6 channel mix's shift."""
+    bps = _layer_tp(blocks, layer_idx)
     xs = _add(xs, _mixer_filling(
         cfg, bps, _norm_tp(cfg, xs, [b["norm1"] for b in bps]), positions,
         states, "layer", layer_idx))
@@ -451,7 +486,8 @@ def _block_tp(cfg, ps, bps, xs, positions, layer_idx, enc_outs=None,
     return _add(xs, hs), aux
 
 
-def _enc_block_tp(enc_cfg, bps, xs, positions):
+def _enc_block_tp(enc_cfg, blocks, xs, positions, i):
+    bps = _layer_tp(blocks, i)
     xs = _add(xs, attention.attn_apply_tp(
         enc_cfg, [b["attn"] for b in bps],
         _norm_tp(enc_cfg, xs, [b["norm1"] for b in bps]), positions,
@@ -476,9 +512,9 @@ def encode_tp(cfg, ps, frames):
     enc_cfg = cfg.replace(mixer="attn", mla=False, mlp="gelu")
     blocks = [p["enc_blocks"] for p in ps]
     remat = _rematted(cfg)
-    for i in range(next(leaves(blocks[0])).shape[0]):
-        xs = _run_block(remat, _enc_block_tp, enc_cfg,
-                        _layer_tp(blocks, i), xs, positions)
+    for i in range(depth(blocks[0])):
+        xs = _run_block(remat, _enc_block_tp, enc_cfg, blocks, xs,
+                        positions, i)
     return _norm_tp(cfg, xs, [p["enc_norm"] for p in ps])
 
 
@@ -530,9 +566,9 @@ def forward_tp(cfg, ps, tokens, vision_embeds=None, audio_frames=None):
     blocks = [p["blocks"] for p in ps]
     remat = _rematted(cfg)
     aux = torch.zeros((), dtype=_F32, device=xs[0].device)
-    for i in range(next(leaves(blocks[0])).shape[0]):
-        xs, a = _run_block(remat, _block_tp, cfg, ps, _layer_tp(blocks, i),
-                           xs, positions, i, enc_outs)
+    for i in range(depth(blocks[0])):
+        xs, a = _run_block(remat, _block_tp, cfg, ps, blocks, xs, positions,
+                           i, enc_outs)
         aux = aux + a
     xs = _norm_tp(cfg, xs, [p["final_norm"] for p in ps])
     return layers.logits_from_hidden_tp(cfg, ps, xs), aux

@@ -19,7 +19,9 @@ each batch shard, as GSPMD partitions the reference's step: each position
 of the shard's row over "model" computes with its own pieces, gathered
 over the batch axes only (Megatron's column / row splits, MLA's heads,
 ``E/M`` whole experts); the embedding, the head, the logits and the
-cross-entropy are split by vocabulary.
+cross-entropy are split by vocabulary. Every sharded step is ZeRO-3
+(``_zero3_step``): a block gathers its own layer inside its checkpoint, and
+backward cuts that layer's gradient into the pieces as it makes it.
 
 The reference's ``remat`` (``jax.checkpoint`` per layer) is the port's
 too: with ``cfg.remat`` (every full config) the forward checkpoints each
@@ -30,6 +32,8 @@ with the CPU's.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -37,7 +41,8 @@ from ..distributed import collectives
 from ..distributed import mesh as _mesh
 from ..distributed import sharding as _sh
 from ..models import forward, moe
-from ..models.transformer import forward_tp, leaves, tp_covers, tree_map
+from ..models.transformer import (STACKED, forward_tp, leaves, tp_covers,
+                                  tree_map)
 from . import optimizer as opt
 
 _F32 = torch.float32
@@ -193,37 +198,6 @@ def _psum_list(vals) -> torch.Tensor:
     return collectives.psum(collectives.shard_array(vals), 0).item()
 
 
-def _moe_global_step(cfg, loss_fn, params, batch, devs, rows):
-    """``((total, parts), per-shard gradient trees)`` of a MoE config over
-    several batch shards: the reference's one-device function on the
-    global batch. Each shard's forward runs on its device, in row-major
-    order, under ``moe.global_dispatch`` with the offsets its predecessors
-    carried, so capacity, keep masks and slots are the global batch's; the
-    global load-balance loss is formed from every shard's router sums, and
-    one backward runs through all the shards' graphs. With ``remat`` those
-    graphs hold each shard's block inputs, and the recompute of a block
-    re-enters its shard's dispatch (``moe.recompute_context``)."""
-    with torch.enable_grad():
-        totals, ces, heres, disps = [], [], [], []
-        for k, dev in enumerate(devs):
-            with _mesh.at(dev):
-                part = {name: v.narrow(0, k * rows, rows).to(dev)
-                        for name, v in batch.items()}
-                here = tree_map(lambda p: _sh.gather(p, dev).detach()
-                                .requires_grad_(True), params)
-                d = _next_dispatch(batch, disps, dev, k)
-                with moe.global_dispatch(d):
-                    total, parts = loss_fn(here, part)
-            totals.append(total)
-            ces.append(parts["ce"])
-            heres.append(here)
-            disps.append(d)
-        total, aux, grads = _global_backward(cfg, totals, disps, heres,
-                                             params, devs[0])
-    parts = {"ce": _psum_list(ces).detach(), "aux": aux.detach()}
-    return (total.detach(), parts), grads
-
-
 def _next_dispatch(batch, disps, device, k: int) -> "moe.Dispatch":
     """Batch shard ``k``'s ``moe.Dispatch``: the global batch's token
     count, the slot offsets the earlier shards (``disps``) carried, on
@@ -232,19 +206,15 @@ def _next_dispatch(batch, disps, device, k: int) -> "moe.Dispatch":
                         disps[-1].carried(device) if disps else (), shard=k)
 
 
-def _global_backward(cfg, totals, disps, trees, params, device):
+def _global_backward(cfg, totals, disps, device):
     """The end of a MoE step on the global batch: the global load-balance
     loss (``moe.global_aux``, on ``device``) added to the shards' summed
-    losses, and one backward through every shard's graph to the leaves of
-    ``trees`` (each of ``params``' structure). Returns ``(total, aux, one
-    gradient tree per tree)``."""
+    losses, and one backward through every shard's graph. Returns
+    ``(total, aux)``."""
     aux = moe.global_aux(cfg, disps, device)
     total = _psum_list(totals) + aux
-    flat = iter(torch.autograd.grad(
-        total, [t for h in trees for t in leaves(h)], allow_unused=True,
-        materialize_grads=True))
-    return total, aux, [tree_map(lambda _: next(flat), params)
-                        for _ in trees]
+    total.backward()
+    return total, aux
 
 
 def vocab_parallel_nll(logits, labels):
@@ -315,7 +285,8 @@ def row_pieces(params, row):
 
 def row_value_and_grad(loss_fn, ps, parts):
     """``value_and_grad`` of a row's loss: ``((total, parts), one gradient
-    tree per position)``."""
+    tree per position)``. On ``row_pieces`` it is the gather-everything
+    form that the tests hold the ZeRO-3 step against, bit for bit."""
     (total, out), g = value_and_grad(
         lambda t, b: loss_fn([t[j] for j in range(len(t))], b),
         dict(enumerate(ps)), parts)
@@ -332,64 +303,71 @@ def _tp_applies(cfg, mesh, params, batch_over_model: bool,
             and any(_sh.TP in p.spec.mesh_axes() for p in leaves(params)))
 
 
-def _tp_step(cfg, loss_fn, params, batch, mesh, axes, rows):
-    """``((total, parts), Sharded gradients)`` of the tensor-parallel step:
-    each batch shard's forward over its row of positions (in
-    ``tensor_parallel``), its rows of the batch at every position of the
-    row; then every leaf's gradient pieces summed over the batch shards
-    and cut over "data" (``sharding.reduce_scatter_leaf``).
+def _zero3_step(cfg, loss_fn, params, batch, grid, rows, tp: bool):
+    """``((total, parts), Sharded gradients)`` of the sharded step, ZeRO-3:
+    batch shard ``k`` runs on the positions ``grid[k]`` (with ``tp``, its
+    row over "model", in ``tensor_parallel``, each position with its
+    "model" pieces; else one position with whole leaves), on its rows of
+    the batch. Its parameters come from ``sharding.Zero3``: the stacked
+    blocks gathered over "data" a layer at a time inside each block (and
+    again in its recompute under ``remat``), the other leaves gathered
+    once for the shard; backward cuts each layer's gradient into the
+    pieces as it makes it (``collectives.reduce_scatter_into``) and frees
+    it, so no position holds every layer's weights or gradients at once.
+    Without ``remat`` (``cfg.remat`` or ``scan_layers`` off), autograd
+    keeps the weights a block's matmuls save until backward.
 
-    A dense config runs each row's backward before the next row's forward
-    (``row_value_and_grad``). A MoE config computes the reference's
-    function on the global batch, as ``_moe_global_step`` does on whole
-    leaves: each row's forward under its ``moe.Dispatch`` (the global
-    capacity, the slot offsets the earlier rows carried), then the global
-    load-balance loss (``moe.global_aux``), then one backward over every
-    position's pieces; with ``remat`` a block's recompute re-enters its
-    row and its row's dispatch."""
-    grid = np.asarray(mesh.devices_of(tuple(axes) + (_sh.TP,)),
-                      dtype=object).reshape(-1, mesh.shape[_sh.TP])
-    K, M = grid.shape
-    disps = [] if cfg.mlp == "moe" else None
-    totals, ces, auxs, grads, held = [], [], [], [], []
+    A dense config runs each shard's backward before the next shard's
+    forward, so each piece is the sum over the shards in row-major order
+    (a leaf not split over "model" first summed over the row in order),
+    bit for bit the per-shard sum. A MoE config (on a row, or on several
+    shards) computes the reference's function on the global batch: each
+    shard's forward under its ``moe.Dispatch`` (the global capacity, the
+    slot offsets the earlier shards carried), then the global
+    load-balance loss (``moe.global_aux``), then one backward through
+    every shard's graph, which adds the shards' layers in the order
+    autograd reaches them; with ``remat`` a block's recompute re-enters its
+    row and its shard's dispatch."""
+    z = _sh.Zero3(params, STACKED)
+    disps = [] if cfg.mlp == "moe" and (tp or len(grid) > 1) else None
+    totals, ces, auxs = [], [], []
     with torch.enable_grad():
-        for k in range(K):
-            row = tuple(grid[k])
-            with _mesh.at(row[0]), _mesh.tensor_parallel(row):
+        for k, row in enumerate(map(tuple, grid)):
+            with _mesh.at(row[0]), (_mesh.tensor_parallel(row) if tp else
+                                    contextlib.nullcontext()):
                 parts = _mesh.each(lambda dev: {
                     name: v.narrow(0, k * rows, rows).to(dev)
-                    for name, v in batch.items()}, row)
-                ps = row_pieces(params, row)
+                    for name, v in batch.items()}, row, over=row)
+                ps = z.trees((dev, {_sh.TP: j} if tp else None)
+                             for j, dev in enumerate(row))
+                args = (ps, parts) if tp else (ps[0], parts[0])
                 if disps is None:
-                    (total, p), g = row_value_and_grad(loss_fn, ps, parts)
-                    grads.extend(g)
+                    total, p = loss_fn(*args)
+                    total.backward()
+                    total = total.detach()
                 else:
-                    ps = [tree_map(lambda a: a.detach().requires_grad_(True),
-                                   t) for t in ps]
                     d = _next_dispatch(batch, disps, row[0], k)
                     with moe.global_dispatch(d):
-                        total, p = loss_fn(ps, parts)
+                        total, p = loss_fn(*args)
                     disps.append(d)
-                    held.extend(ps)
-                del ps
+                del ps, args
             totals.append(total)
-            ces.append(p["ce"])
-            auxs.append(p["aux"])
+            ces.append(p["ce"].detach())
+            auxs.append(p["aux"].detach())
         if disps is None:
             total, aux = _psum_list(totals), _psum_list(auxs)
         else:
-            total, aux, grads = _global_backward(cfg, totals, disps, held,
-                                                 params, grid[0, 0])
-            del held
+            total, aux = _global_backward(cfg, totals, disps, grid[0][0])
     parts = {"ce": _psum_list(ces).detach(), "aux": aux.detach()}
+    return (total.detach(), parts), z.grads()
 
-    def leaf(p, *gs):
-        arr = np.empty((K, M), dtype=object)
-        for i, g in enumerate(gs):
-            arr[i // M, i % M] = g
-        return _sh.reduce_scatter_leaf(p, arr)
 
-    return (total.detach(), parts), tree_map(leaf, params, *grads)
+def _tp_step(cfg, loss_fn, params, batch, mesh, axes, rows):
+    """``_zero3_step`` of the tensor-parallel layout: each batch shard on
+    its row of "model" positions."""
+    grid = np.asarray(mesh.devices_of(tuple(axes) + (_sh.TP,)),
+                      dtype=object).reshape(-1, mesh.shape[_sh.TP])
+    return _zero3_step(cfg, loss_fn, params, batch, grid, rows, tp=True)
 
 
 def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
@@ -409,18 +387,18 @@ def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
     positions (``_tp_step``): no position gathers a "model"-split leaf
     whole (an expert tensor, an MLA head-split leaf) or holds the whole
     vocabulary's logits. Otherwise each batch shard's forward and backward
-    run on its device (the position at model index 0) with the
-    ``Sharded`` parameters gathered whole there (ZeRO-3), and the shards'
-    gradients are summed (``psum``) and cut.
+    run on its device (the position at model index 0) with whole leaves.
+    Either way the step is ZeRO-3 (``_zero3_step``): the blocks gather
+    their layer over "data" inside their checkpoint and each layer's
+    gradient is cut into the pieces as backward makes it.
 
     A MoE config on more than one batch shard computes the reference's
     GSPMD step, the one-device function on the global batch: expert
     capacity from the global token count, each (token, slot)'s place in
     its expert after the earlier shards' (``moe.global_dispatch``), the
     load-balance loss from global means. Its shards' (or rows') forwards
-    run first and one backward follows (``_moe_global_step`` on whole
-    leaves, ``_tp_step`` on rows; a tensor-parallel row runs under one
-    dispatch in any case), so every shard's activations live until then:
+    run first and one backward follows (a tensor-parallel row runs under
+    one dispatch in any case), so every shard's activations live until then:
     on separate cards each holds its own shard's, as GSPMD does; on one
     card holding every shard they add up to the one-device step's."""
     def vag(params, batch):
@@ -438,30 +416,8 @@ def make_sharded_value_and_grad(cfg, mesh, batch_over_model: bool = False):
             return _tp_step(cfg, _global_loss_fn(cfg, n_valid, n_tok,
                                                  _tp_terms(cfg)),
                             params, batch, mesh, axes, rows)
-        loss_fn = _global_loss_fn(cfg, n_valid, n_tok)
-        if cfg.mlp == "moe" and len(devs) > 1:
-            (total, parts), grads = _moe_global_step(
-                cfg, loss_fn, params, batch, devs, rows)
-        else:
-            totals, ces, auxs, grads = [], [], [], []
-            for k, dev in enumerate(devs):
-                with _mesh.at(dev):
-                    part = {name: v.narrow(0, k * rows, rows).to(dev)
-                            for name, v in batch.items()}
-                    here = tree_map(lambda p: _sh.gather(p, dev), params)
-                    (total, parts), g = value_and_grad(loss_fn, here, part)
-                totals.append(total)
-                ces.append(parts["ce"])
-                auxs.append(parts["aux"])
-                grads.append(g)
-                del here
-            total = _psum_list(totals)
-            parts = {"ce": _psum_list(ces), "aux": _psum_list(auxs)}
-        full = tree_map(lambda *gs: _psum_list(gs), *grads)
-        del grads
-        pieces = tree_map(lambda p, g: _sh.shard(g, p.spec, p.mesh),
-                          params, full)
-        return (total, parts), pieces
+        return _zero3_step(cfg, _global_loss_fn(cfg, n_valid, n_tok), params,
+                           batch, devs.reshape(-1, 1), rows, tp=False)
 
     return vag
 
@@ -515,9 +471,9 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, mesh,
     Parameters and AdamW moments are ``Sharded`` leaves
     (``shard_train_state``). Gradients come from
     ``make_sharded_value_and_grad`` (each batch shard tensor-parallel over
-    its row of positions, or on one device with the parameters gathered
-    there; the shards' gradients summed in row-major order and cut into the
-    parameters' pieces), the update from
+    its row of positions, or on one device with whole layers, each layer
+    gathered inside its block; each layer's gradient cut into the
+    parameters' pieces as backward makes it), the update from
     ``sharded_update`` (each piece where it lives, one global norm). Same
     contract as ``make_train_step``: new tensors, inputs left alone.
 

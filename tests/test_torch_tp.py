@@ -233,7 +233,17 @@ def test_tp_step_keeps_leaves_and_logits_split(name, tag, monkeypatch):
         widths.extend(lg.shape[-1] for lg in out)
         return out
 
+    gather_layer = sh.gather_layer
+
+    def spy_gather_layer(leaf, i, device=None, index=None):
+        # a stacked leaf's layer, with its layer axis put back
+        out = gather_layer(leaf, i, device, index)
+        seen.append((leaf.spec, tuple(leaf.shape), index,
+                     (leaf.shape[0],) + tuple(out.shape)))
+        return out
+
     monkeypatch.setattr(sh, "gather", spy_gather)
+    monkeypatch.setattr(sh, "gather_layer", spy_gather_layer)
     monkeypatch.setattr(layers, "logits_from_hidden_tp", spy_logits)
     make_sharded_value_and_grad(cfg, mesh)(ps, _torch(_batch(cfg)))
     assert seen and all(index is not None for _, _, index, _ in seen)

@@ -23,7 +23,7 @@ deepseek:
   (2, 2, 2) against the reference's GSPMD step (one 8-device subprocess
   for the file), at the same bars;
 * dbrx's a2a inside the row against the port's whole-leaf step under the
-  same hint mesh (``_moe_global_step``), routing equal exactly;
+  same hint mesh (whole layers a batch shard), routing equal exactly;
 * that the path is the TP one: no position receives a whole ``moe.wg`` /
   ``wu`` / ``wo``, ``w_uk``, ``w_uv`` or ``mla.wq``;
 * remat on against off, bit for bit;
@@ -244,8 +244,8 @@ def test_tp_moe_step_matches_one_device(name, tag, cap):
 @pytest.mark.parametrize("tag", ["4x2", "2x2x2", "2x4"])
 def test_a2a_in_the_row_matches_the_whole_leaf_a2a(tag, cap):
     """dbrx under the hint mesh: the a2a inside each row of positions
-    against the port's whole-leaf step (``_moe_global_step``) under the
-    same mesh, whose a2a exchanges among the batch shard's ranks on
+    against the port's whole-leaf step (whole layers a batch shard) under
+    the same mesh, whose a2a exchanges among the batch shard's ranks on
     slices of the whole weights."""
     cfg = _cfg("dbrx-132b", cap)
     params = init_params(cfg, device=CPU, seed=0)
@@ -291,7 +291,17 @@ def test_no_position_receives_a_whole_expert_or_head_leaf(name, tag, hinted,
         seen.append((leaf.spec, tuple(leaf.shape), index, tuple(out.shape)))
         return out
 
+    gather_layer = sh.gather_layer
+
+    def spy_gather_layer(leaf, i, device=None, index=None):
+        # a stacked leaf's layer, with its layer axis put back
+        out = gather_layer(leaf, i, device, index)
+        seen.append((leaf.spec, tuple(leaf.shape), index,
+                     (leaf.shape[0],) + tuple(out.shape)))
+        return out
+
     monkeypatch.setattr(sh, "gather", spy_gather)
+    monkeypatch.setattr(sh, "gather_layer", spy_gather_layer)
     with _hinted(mesh, hinted):
         make_sharded_value_and_grad(cfg, mesh)(ps, _torch(_batch(cfg)))
     assert seen and all(index is not None for _, _, index, _ in seen)

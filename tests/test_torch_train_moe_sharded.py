@@ -10,7 +10,7 @@ the load-balance loss from global means. The port's sharded step is held,
 on (4, 2) and (2, 2, 2) meshes of CPU shards (which run it tensor-parallel
 over "model", experts and MLA heads split: ``_tp_step``, whose own cases
 are ``tests/test_torch_tp_moe.py``'s) and on an (8,) "data" mesh (no
-"model" split, so the whole-leaf ``_moe_global_step``), for reduced
+"model" split, so whole layers a batch shard), for reduced
 ``dbrx-132b`` and reduced ``deepseek-v2-lite-16b``, at the config's
 ``capacity_factor`` and at 0.5, against
 
