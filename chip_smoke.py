@@ -72,6 +72,7 @@ device the script exits non-zero before it prints a result. The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -484,7 +485,7 @@ def phase_kernels() -> dict:
     # ---- full size: PollenUS_Hr-Lb buckets at tile (32, 32, 16)
     inst = get_instance("PollenUS_Hr-Lb")
     dom, pts = inst.domain(), inst.points()
-    before = stkde_tile.launch_count()
+    before = tile_launches()
     st = staged_tile_path(pts, dom, timed_runs=5)
     t, tile, chunk, plan = st["inputs"], st["tile"], st["chunk"], st["plan"]
     args = (t.pts_tiles, t.valid_tiles, dom, tile)
@@ -503,7 +504,7 @@ def phase_kernels() -> dict:
     padded_ms, whole = cuda_ms(
         lambda: stkde_tiles_cuda(*args, t.cap, n, chunk, mode="compiled"),
         warmup=1, runs=3)
-    launches_here = stkde_tile.launch_count() - before
+    launches_here = tile_launches() - before
 
     # the reduction pass alone, on the main path's plan (scratch of zeros)
     lib = build.load("stkde_tile")
@@ -580,7 +581,6 @@ def phase_main_path(kern: dict) -> dict:
     branches, on two Table-2 rows at full n. Returns the kernel's launches
     and each instance's tile-branch grid."""
     from repro_torch.core import get_instance, stkde
-    from repro_torch.kernels import stkde_tile
 
     instances = [get_instance(n) for n in ("Dengue_Lr-Hb", "PollenUS_Hr-Lb")]
     data = [(i, i.domain(), i.points()) for i in instances]
@@ -594,7 +594,7 @@ def phase_main_path(kern: dict) -> dict:
 
     # Each query twice: the first pays one-time costs of the process (CUDA
     # module loading, the allocator's first blocks), the second is steady.
-    stkde_tile.reset_launch_count()
+    launches0 = tile_launches()
     runs = []
     for inst, dom, pts in data:
         _, tile_first_s = timed_query(pts, dom, True)
@@ -603,7 +603,7 @@ def phase_main_path(kern: dict) -> dict:
         scatter, scatter_s = timed_query(pts, dom, False)
         runs.append((inst, dom, pts, tiled, scatter, tile_s, scatter_s,
                      tile_first_s, scatter_first_s))
-    launches = stkde_tile.launch_count()
+    launches = tile_launches() - launches0
 
     rows = []
     ok = launches == 2 * len(data)
@@ -697,13 +697,12 @@ def phase_gold(main: dict) -> int:
     launches in this phase."""
     from repro_torch.core import get_instance, pb, stkde, vb, vb_dec
     from repro_torch.core import kernels_math as km
-    from repro_torch.kernels import stkde_tile
 
     inst = get_instance("Dengue_Lr-Hb")
     dom, pts = inst.domain(), inst.points()
-    stkde_tile.reset_launch_count()
+    launches0 = tile_launches()
     tiled, tiled_s = host_timed(lambda: stkde(pts, dom, use_tiled_kernel=True))
-    launches = stkde_tile.launch_count()
+    launches = tile_launches() - launches0
     scatter, scatter_s = host_timed(lambda: stkde(pts, dom))
     gold, vb_s = host_timed(lambda: vb(pts, dom))
     dec, vb_dec_s = host_timed(lambda: vb_dec(pts, dom))
@@ -789,9 +788,33 @@ def fixed_order_scatter(pts: torch.Tensor, dom) -> torch.Tensor:
                     None, deterministic=True)
 
 
+def tile_launches() -> int:
+    """Launches of the tile kernel in this process so far: the port's
+    registry counter ``stkde_tile.launches``."""
+    from repro_torch.kernels import stkde_tile
+    from repro_torch.obs import metrics
+
+    return int(metrics.counter(stkde_tile.LAUNCHES).value)
+
+
+@contextlib.contextmanager
+def traced():
+    """The port's tracer emptied and recording for the block, and off again
+    after it (it records nothing by default); the spans stay to be read."""
+    from repro_torch.obs import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.enable(False)
+
+
 def chunk_split() -> list:
     """Per chunk, from the spans of the last chunked run: device compute,
-    device-to-host copy, host float64 add, journal write (seconds)."""
+    device-to-host copy, host float64 add, journal write (seconds). The
+    caller ran it under ``traced()``."""
     from repro_torch.obs import trace
 
     rows = {}
@@ -864,7 +887,6 @@ def phase_chunked() -> dict:
 
     from repro_torch.core import get_instance, stkde, stkde_chunked
     from repro_torch.data import stkde_stream
-    from repro_torch.obs import trace
 
     inst = get_instance("PollenUS_Hr-Lb")
     dom, pts = inst.domain(), inst.points()
@@ -900,9 +922,9 @@ def phase_chunked() -> dict:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_journal_") as tmp:
         j1, j2, j3 = (os.path.join(tmp, d) for d in ("j1", "j2", "j3"))
-        trace.reset()
-        first, first_s = host_timed(
-            lambda: stkde_chunked(pts, dom, chunk_size=chunk, journal=j1))
+        with traced():
+            first, first_s = host_timed(
+                lambda: stkde_chunked(pts, dom, chunk_size=chunk, journal=j1))
         split = chunk_split()
         snap_bytes = sorted(os.path.getsize(os.path.join(j1, f))
                             for f in os.listdir(j1) if f.startswith("grid_"))
@@ -964,10 +986,10 @@ def phase_chunked() -> dict:
     # eBird_Lr-Lb: the first three 1M-point chunks of the stream, no journal
     big = get_instance("eBird_Lr-Lb")
     bdom = big.domain()
-    trace.reset()
     torch.cuda.reset_peak_memory_stats()
-    res, stream_s = host_timed(lambda: stkde_chunked(
-        stkde_stream(big, chunk=1_000_000), bdom, max_chunks=3))
+    with traced():
+        res, stream_s = host_timed(lambda: stkde_chunked(
+            stkde_stream(big, chunk=1_000_000), bdom, max_chunks=3))
     rep = res.report
     mass = float(res.grid.sum()) * bdom.sres ** 2 * bdom.tres
     ebird = {
@@ -1212,11 +1234,10 @@ def phase_distributed(dev: dict) -> int:
     Returns the tile kernel's launches in this phase (the strategies run
     the PB-SYM scatter and, for DD-LPT, an einsum: none)."""
     from repro_torch.core import get_instance, stkde
-    from repro_torch.kernels import stkde_tile
 
     if torch.backends.cuda.matmul.allow_tf32:
         fail("distributed: TF32 matmuls are on; DD-LPT's einsum needs fp32")
-    stkde_tile.reset_launch_count()
+    launches0 = tile_launches()
     rows, singles = [], {}
     for name in ("PollenUS_Hr-Lb", "Dengue_Lr-Hb"):
         inst = get_instance(name)
@@ -1231,7 +1252,7 @@ def phase_distributed(dev: dict) -> int:
         else:
             fallback = halo_faults(inst, single)
         del single
-    launches = stkde_tile.launch_count()
+    launches = tile_launches() - launches0
     emit("distributed", nvidia_smi=dev["nvidia_smi"], instances=singles,
          strategies=rows, chunked_on_mesh=chunked, halo_fallback=fallback,
          tolerance={"rtol": BRANCH_TOL["rtol"],
@@ -1387,10 +1408,9 @@ def phase_planner(dev: dict) -> int:
     tile kernel's launches in this phase (none: the strategies scatter)."""
     from repro_torch.core import get_instance, plan, stkde
     from repro_torch.distributed import make_host_mesh
-    from repro_torch.kernels import stkde_tile
 
     t0 = time.perf_counter()
-    stkde_tile.reset_launch_count()
+    launches0 = tile_launches()
     pollen = get_instance("PollenUS_Hr-Lb")
     reports = planner_reconcile(pollen)
     emit("planner_reconcile", reports=reports)
@@ -1425,7 +1445,7 @@ def phase_planner(dev: dict) -> int:
             chunked = recovering_chunked(inst, m2, single)
         del single
         torch.cuda.empty_cache()
-    launches = stkde_tile.launch_count()
+    launches = tile_launches() - launches0
     seconds = time.perf_counter() - t0
     emit("planner", nvidia_smi=dev["nvidia_smi"],
          h100=dataclasses.asdict(committed),
@@ -1450,7 +1470,6 @@ def phase_degrade(dev: dict) -> int:
     import tempfile
 
     from repro_torch.core import get_instance, stkde, stkde_chunked
-    from repro_torch.kernels import stkde_tile
     from repro_torch.obs import metrics
     from repro_torch.resilience import (DegradePolicy, run_with_degrade,
                                         subsample_points)
@@ -1472,12 +1491,12 @@ def phase_degrade(dev: dict) -> int:
         return tiled(p, d)
 
     metrics.reset()
-    stkde_tile.reset_launch_count()
+    launches0 = tile_launches()
     clean, clean_s = host_timed(
         lambda: run_with_degrade(tiled, pts, dom, policy))
     degraded, degraded_s = host_timed(
         lambda: run_with_degrade(oom_at_level_0, pts, dom, policy))
-    launches = stkde_tile.launch_count()
+    launches = tile_launches() - launches0
     counters = metrics.export()["counters"]
     levels = []
     for res, p, sec in (
@@ -1931,7 +1950,7 @@ CKPT_SPANS = ("ckpt.save", "ckpt.snapshot", "ckpt.serialize", "ckpt.write",
 def train_spans() -> dict:
     """The ``train.step`` spans (step, loss, seconds) and the checkpoint
     spans the port's tracer holds (seconds, on the writer thread or not),
-    then clears the tracer."""
+    then clears the tracer. The caller has turned the tracer on."""
     from repro_torch.obs import trace
 
     tr = trace.get_tracer()
@@ -1994,6 +2013,7 @@ def phase_lm_train(dev: dict) -> float:
     try:
         argv = TRAIN_ARGS + ["--ckpt-dir", ckpt_dir]
         trace.reset()
+        trace.enable()   # train_spans reads the steps' and checkpoints' spans
         gc.collect()
         held_before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2021,6 +2041,7 @@ def phase_lm_train(dev: dict) -> float:
         t_resume = time.perf_counter() - t2
         rerun = train_spans()
     finally:
+        trace.enable(False)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     first, last = losses[0], losses[-1]
     resume_diff = abs(resumed["last_loss"] - last)

@@ -7,6 +7,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .obs import trace as obs_trace
 from .resilience.errors import KernelUnavailableError
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -27,7 +28,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def points_to_device(points, device: torch.device) -> torch.Tensor:
     """The ``(n, 3)`` float32 points on ``device``, copied once (from pinned
     host memory when the device is a card)."""
-    pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.float32))
-    if device.type == "cuda":
-        return pts.pin_memory().to(device, non_blocking=True)
-    return pts.to(device)
+    with obs_trace.span("stkde.h2d", device=device) as sp:
+        pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.float32))
+        if sp.recording:
+            sp.set(bytes=pts.nbytes)
+        if device.type == "cuda":
+            return pts.pin_memory().to(device, non_blocking=True)
+        return pts.to(device)

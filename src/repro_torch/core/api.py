@@ -184,21 +184,25 @@ def stkde(
             resume=resume is not None, validate=validate, device=device,
         )
     dev = resolve_device(device) if mesh is None else None
-    if validate:
-        pts = validate_inputs(points, dom)
-    else:
-        pts = np.asarray(points, dtype=np.float32)
-    if mesh is None:
-        if use_tiled_kernel:
-            from ..kernels import stkde_tiled
+    with (obs.span("stkde.query", device=dev, query=True) if mesh is None
+          else obs.trace.OFF) as sp:
+        if sp.recording:
+            sp.set(path="tile" if use_tiled_kernel else "pb",
+                   n=len(points), grid="x".join(map(str, dom.grid_shape)))
+        with obs.span("stkde.validate", device=dev):
+            pts = (validate_inputs(points, dom) if validate
+                   else np.asarray(points, dtype=np.float32))
+        if mesh is None:
+            if use_tiled_kernel:
+                from ..kernels import stkde_tiled
 
+                return ensure_finite(
+                    stkde_tiled(pts, dom, ks=ks, kt=kt, device=dev),
+                    "stkde.tiled")
             return ensure_finite(
-                stkde_tiled(pts, dom, ks=ks, kt=kt, device=dev),
-                "stkde.tiled")
-        return ensure_finite(
-            _pb(pts, dom, variant="sym", ks=ks, kt=kt, device=dev),
-            "stkde.pb"
-        )
+                _pb(pts, dom, variant="sym", ks=ks, kt=kt, device=dev),
+                "stkde.pb"
+            )
 
     from ..distributed.stkde_dist import STRATEGIES, strategy_kwargs
 

@@ -48,6 +48,8 @@ class Buckets:
     tile: Tuple[int, int, int]
     cap: int
     mode: str
+    copies: int = 0  # point copies in all buckets: the sum of ``counts``
+    n_source: int = 1
 
     @property
     def ntiles(self) -> Tuple[int, int, int]:
@@ -56,10 +58,7 @@ class Buckets:
     @property
     def replication_factor(self) -> float:
         """Average copies per point (1.0 for home; >1 measures DD overhead)."""
-        total = int(self.counts.sum())
-        return total / max(1, self._n_source)
-
-    _n_source: int = 1
+        return self.copies / max(1, self.n_source)
 
 
 def round_up(x: int, m: int) -> int:
@@ -126,16 +125,16 @@ def _densify(
     points[sorted_ids, within] = sorted_pts
     valid[sorted_ids, within] = True
 
-    b = Buckets(
+    return Buckets(
         points=points.reshape(ntx, nty, ntt, cap, 3),
         valid=valid.reshape(ntx, nty, ntt, cap),
         counts=counts.reshape(ntx, nty, ntt),
         tile=tile,
         cap=cap,
         mode=mode,
+        copies=len(tile_ids),
+        n_source=n_source,
     )
-    b._n_source = n_source
-    return b
 
 
 def _point_voxels_torch(pts: torch.Tensor, dom: Domain) -> torch.Tensor:
@@ -162,7 +161,9 @@ def _densify_torch(
     mode: str,
 ) -> Buckets:
     """``_densify`` on the device of ``tile_ids``: the stable sort keeps each
-    bucket in the order of the copies, as ``np.argsort(kind="stable")``."""
+    bucket in the order of the copies, as ``np.argsort(kind="stable")``.
+    The largest load is the one number read back here; the number of copies
+    is ``tile_ids``' length, known on the host."""
     ntx, nty, ntt = nt
     ntiles_flat = ntx * nty * ntt
     dev = tile_ids.device
@@ -187,16 +188,16 @@ def _densify_torch(
     points[sorted_ids, within] = sorted_pts
     valid[sorted_ids, within] = True
 
-    b = Buckets(
+    return Buckets(
         points=points.reshape(ntx, nty, ntt, cap, 3),
         valid=valid.reshape(ntx, nty, ntt, cap),
         counts=counts.reshape(ntx, nty, ntt),
         tile=tile,
         cap=cap,
         mode=mode,
+        copies=len(tile_ids),
+        n_source=n_source,
     )
-    b._n_source = n_source
-    return b
 
 
 def _home_ids(vox, tile, nt):
@@ -218,15 +219,16 @@ def bucket_points_home(
     pts = (pts.to(torch.float32) if on_device
            else np.asarray(pts, dtype=np.float32))
     nt = num_tiles(dom, tile)
-    with obs_trace.span("bucketing.home", n=len(pts),
-                        tiles=f"{nt[0]}x{nt[1]}x{nt[2]}") as sp:
+    with obs_trace.span("bucketing.home",
+                        device=pts.device if on_device else None) as sp:
         if on_device:
             ids = _home_ids(_point_voxels_torch(pts, dom), tile, nt)
             b = _densify_torch(ids, pts, nt, cap, len(pts), tile, "home")
         else:
             ids = _home_ids(_point_voxels_np(pts, dom), tile, nt)
             b = _densify(ids, pts, nt, cap, len(pts), tile, "home")
-        sp.set(cap=b.cap)
+        if sp.recording:
+            sp.set(n=len(pts), tiles=f"{nt[0]}x{nt[1]}x{nt[2]}", cap=b.cap)
         return b
 
 
@@ -243,11 +245,14 @@ def bucket_points_overlap(
            else np.asarray(pts, dtype=np.float32))
     n = len(pts)
     nt = num_tiles(dom, tile)
-    with obs_trace.span("bucketing.overlap", n=n,
-                        tiles=f"{nt[0]}x{nt[1]}x{nt[2]}") as sp:
+    with obs_trace.span("bucketing.overlap",
+                        device=pts.device if on_device else None) as sp:
         overlap = _bucket_overlap_torch if on_device else _bucket_overlap
         b = overlap(pts, dom, tile, nt, cap, n)
-        sp.set(cap=b.cap, replication=round(b.replication_factor, 3))
+        if sp.recording:
+            sp.set(n=n, tiles=f"{nt[0]}x{nt[1]}x{nt[2]}", cap=b.cap,
+                   replication=round(b.replication_factor, 3),
+                   copies=b.copies)
         return b
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..obs import trace as obs_trace
 from .geometry import Domain
 from . import kernels_math as km
 
@@ -177,23 +178,32 @@ def _pb_impl(
             "scatter-path PB needs grid < 2^30 voxels; use the tiled kernel "
             "or the distributed strategies for larger grids"
         )
-    pts_b, vox_b = _padded_blocks(points, dom, _block_size(dom, budget_elems))
-    grid = torch.zeros((gsz + 1,), dtype=torch.float32,
-                       device=points.device)         # +1 slot absorbs drops
-    in_order = deterministic and grid.is_cuda
-    for p, v in zip(pts_b, vox_b):
-        lin, vals = _cylinder_values(p, v, dom, variant, ks, kt, n_norm)
-        if in_order:
-            _add_in_order(grid, lin.reshape(-1), vals.reshape(-1))
-        else:
-            grid.index_add_(0, lin.reshape(-1), vals.reshape(-1))
-    return grid[:gsz].reshape(dom.grid_shape)
+    with obs_trace.span("stkde.scatter", device=points.device) as sp:
+        pts_b, vox_b = _padded_blocks(points, dom,
+                                      _block_size(dom, budget_elems))
+        if sp.recording:
+            sp.set(blocks=len(pts_b))
+        grid = torch.zeros((gsz + 1,), dtype=torch.float32,
+                           device=points.device)     # +1 slot absorbs drops
+        in_order = deterministic and grid.is_cuda
+        for p, v in zip(pts_b, vox_b):
+            lin, vals = _cylinder_values(p, v, dom, variant, ks, kt, n_norm)
+            if in_order:
+                _add_in_order(grid, lin.reshape(-1), vals.reshape(-1))
+            else:
+                grid.index_add_(0, lin.reshape(-1), vals.reshape(-1))
+        return grid[:gsz].reshape(dom.grid_shape)
 
 
 def _as_points(points, device: DeviceLike) -> torch.Tensor:
-    pts = torch.as_tensor(np.asarray(points, dtype=np.float32)
-                          if not isinstance(points, torch.Tensor) else points)
-    return pts.to(resolve_device(device))
+    dev = resolve_device(device)
+    with obs_trace.span("stkde.h2d", device=dev) as sp:
+        pts = torch.as_tensor(np.asarray(points, dtype=np.float32)
+                              if not isinstance(points, torch.Tensor)
+                              else points)
+        if sp.recording:
+            sp.set(bytes=pts.nbytes)
+        return pts.to(dev)
 
 
 def pb_eval_only(points, dom: Domain, variant: str = "sym",

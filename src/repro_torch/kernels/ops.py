@@ -14,6 +14,7 @@ import torch
 
 from .. import convert
 from .._device import DeviceLike, points_to_device, resolve_device
+from ..obs import trace as obs_trace
 from ..core.geometry import Domain
 from ..core import bucketing
 from ..core import kernels_math as km
@@ -51,12 +52,18 @@ def prepare_tiles(
     cap_eff = bucketing.round_up(b.cap, min(chunk, bucketing.round_up(b.cap, 8)))
     if cap_eff != b.cap:
         pad = cap_eff - b.cap
-        if isinstance(b.points, torch.Tensor):
-            b.points = torch.nn.functional.pad(b.points, (0, 0, 0, pad))
-            b.valid = torch.nn.functional.pad(b.valid, (0, pad))
-        else:
-            b.points = np.pad(b.points, ((0, 0),) * 3 + ((0, pad), (0, 0)))
-            b.valid = np.pad(b.valid, ((0, 0),) * 3 + ((0, pad),))
+        on_device = isinstance(b.points, torch.Tensor)
+        with obs_trace.span("bucketing.pad", device=b.points.device
+                            if on_device else None) as sp:
+            if on_device:
+                b.points = torch.nn.functional.pad(b.points, (0, 0, 0, pad))
+                b.valid = torch.nn.functional.pad(b.valid, (0, pad))
+            else:
+                b.points = np.pad(b.points,
+                                  ((0, 0),) * 3 + ((0, pad), (0, 0)))
+                b.valid = np.pad(b.valid, ((0, 0),) * 3 + ((0, pad),))
+            if sp.recording:
+                sp.set(cap=b.cap, to=cap_eff)
         b.cap = cap_eff
     chunk_eff = min(chunk, cap_eff)
     # make chunk divide cap
@@ -93,14 +100,16 @@ def stkde_tiled(
     dev = resolve_device(device)
     b, chunk_eff = prepare_tiles(points_to_device(points, dev), dom, tile,
                                  cap=cap, chunk=chunk)
-    t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile, b.cap,
-                                 device=dev)
+    with obs_trace.span("stkde.tile.inputs", device=dev):
+        t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile,
+                                     b.cap, device=dev)
+        counts = t.counts if use_ref else t.counts.cpu()
     if use_ref:
         padded = _ref.stkde_tiles_ref(t.pts_tiles, t.valid_tiles, dom, tile,
-                                      n, ks, kt, counts=t.counts)
+                                      n, ks, kt, counts=counts)
     else:
         padded = stkde_tiles_cuda(
             t.pts_tiles, t.valid_tiles, dom, tile, t.cap, n, chunk_eff,
-            ks, kt, mode=mode, counts=t.counts.cpu(),
+            ks, kt, mode=mode, counts=counts,
         )
     return padded[: dom.Gx, : dom.Gy, : dom.Gt]

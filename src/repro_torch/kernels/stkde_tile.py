@@ -30,6 +30,8 @@ import torch
 
 from ..core.geometry import Domain
 from ..core import kernels_math as km
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..resilience.errors import KernelUnavailableError
 from . import build
 from .ref import stkde_tiles_ref
@@ -43,18 +45,9 @@ MAX_SMEM_BYTES = 232_448
 PANEL = 64
 # work items per block slot of the card that the default seg aims for
 WAVES = 4
-
-_launches = 0
-
-
-def launch_count() -> int:
-    """How many times this process has launched the CUDA tile kernel."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+# the registry counter of the kernel's launches (split pass and reduction
+# of one plan count once)
+LAUNCHES = "stkde_tile.launches"
 
 
 class SegmentPlan(NamedTuple):
@@ -82,6 +75,30 @@ class SegmentPlan(NamedTuple):
     @property
     def slots(self) -> int:
         return int(self.reduce[:, 2].sum()) if len(self.reduce) else 0
+
+
+def walked_pairs(plan: SegmentPlan, tile: Tuple[int, int, int]) -> int:
+    """(point, voxel) pairs the split pass multiplies for ``plan``, as
+    ``csrc/stkde_tile.cu`` walks them: an item of ``length`` points walks
+    its panels in k-steps of 8 points, the last panel only up to the k-step
+    that holds its last point (``nk``), so ``8 * ceil(length / 8)`` points,
+    each against the ``bx * by * bt`` voxels of its tile."""
+    lengths = plan.items[:, 2].astype(np.int64)
+    return int(((lengths + 7) // 8 * 8).sum()) * int(np.prod(tile))
+
+
+def plan_counts(plan: SegmentPlan, cap: int,
+                tile: Tuple[int, int, int]) -> dict:
+    """What the ``stkde.tile.plan`` span reports of a plan: its tiles (each
+    has an item), work items, split tiles and ``seg``; the point copies in
+    the buckets (``copies``, the items' lengths, which sum to the loads) and
+    the bucket slots they sit in (``slots``, tiles x ``cap``); and the
+    pairs the kernel walks."""
+    tiles = int(plan.items[:, 0].max()) + 1 if plan.segments else 0
+    return {"tiles": tiles, "items": plan.segments,
+            "split_tiles": len(plan.reduce), "seg": plan.seg,
+            "copies": int(plan.items[:, 2].astype(np.int64).sum()),
+            "slots": tiles * int(cap), "walked_pairs": walked_pairs(plan, tile)}
 
 
 def choose_seg(total_walk: int, sms: int, blocks_per_sm: int,
@@ -299,11 +316,15 @@ def _run(prep: Prepared, pts_tiles, valid_tiles) -> torch.Tensor:
 
 def _launch(pts_tiles, valid_tiles, counts, dom, tile, cap, n_total, chunk,
             ks, kt, seg) -> torch.Tensor:
-    global _launches
-    prep = _prepare(pts_tiles, valid_tiles, counts, dom, tile, cap, n_total,
-                    chunk, ks, kt, seg)
-    out = _run(prep, pts_tiles, valid_tiles)
-    _launches += 1
+    dev = pts_tiles.device
+    with obs_trace.span("stkde.tile.plan", device=dev) as sp:
+        prep = _prepare(pts_tiles, valid_tiles, counts, dom, tile, cap,
+                        n_total, chunk, ks, kt, seg)
+        if sp.recording:
+            sp.set(**plan_counts(prep.plan, prep.cap, prep.tile))
+    with obs_trace.span("stkde.tile.launch", device=dev):
+        out = _run(prep, pts_tiles, valid_tiles)
+    obs_metrics.counter(LAUNCHES).inc()
     return out
 
 

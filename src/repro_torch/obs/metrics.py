@@ -118,25 +118,6 @@ class Histogram:
             "p99": self.percentile(0.99),
         }
 
-    def _merge_summary(self, s: Dict[str, float]) -> None:
-        """Coarse merge of an exported summary (cross-process ingest):
-        count/sum/min/max merge exactly; the midpoint stands in for the
-        child's percentile mass."""
-        with self._lock:
-            n = int(s.get("count", 0))
-            if n == 0:
-                return
-            self.count += n
-            self.sum += s.get("sum", 0.0)
-            for k, pick in (("min", min), ("max", max)):
-                v = s.get(k)
-                if v is not None and not math.isnan(v):
-                    cur = getattr(self, k)
-                    setattr(self, k, v if cur is None else pick(cur, v))
-            mid = s.get("p50", s.get("mean", 0.0))
-            b = self._bucket_of(mid if mid and not math.isnan(mid) else 0.0)
-            self._buckets[b] = self._buckets.get(b, 0) + n
-
 
 class Registry:
     """Name -> instrument map; instruments are created on first use."""
@@ -178,15 +159,6 @@ class Registry:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(self.to_dict(), f, indent=1, default=float)
-
-    def merge(self, exported: Dict[str, Dict]) -> None:
-        """Fold another registry's ``to_dict()`` output into this one."""
-        for k, v in exported.get("counters", {}).items():
-            self.counter(k).inc(v)
-        for k, v in exported.get("gauges", {}).items():
-            self.gauge(k).set(v)
-        for k, s in exported.get("histograms", {}).items():
-            self.histogram(k)._merge_summary(s)
 
     def reset(self) -> None:
         with self._lock:

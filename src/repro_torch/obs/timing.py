@@ -40,6 +40,7 @@ def block_until_ready(x: Any) -> Any:
     anything else."""
     for dev in _cuda_devices(x, set()):
         torch.cuda.synchronize(dev)
+        trace.count_sync()
     return x
 
 

@@ -105,9 +105,10 @@ def ensure_finite(grid, tag: str = "stkde"):
     device to finish the grid).
     """
     if isinstance(grid, torch.Tensor):
-        finite = torch.isfinite(grid)
-        ok, size = bool(finite.all()), grid.numel()
-        bad = 0 if ok else int(size - int(finite.sum()))
+        with obs_trace.span("stkde.finish", device=grid.device):
+            finite = torch.isfinite(grid)
+            ok, size = bool(finite.all()), grid.numel()
+            bad = 0 if ok else int(size - int(finite.sum()))
     else:
         arr = np.asarray(grid)
         finite = np.isfinite(arr)

@@ -489,15 +489,16 @@ class ServingEngine:
             self.device)
 
         def attempt():
-            with obs.span("serve.prefill", slot=slot, seq=len(r.prompt)) \
-                    as sp:
+            t0 = time.perf_counter()
+            with obs.span("serve.prefill", slot=slot, seq=len(r.prompt)):
                 faults.fault_point("serve.prefill")
                 logits, new_state = self._prefill_slot(
                     self.params, prompt, state, slot)
                 logits = faults.poison("serve.prefill", logits)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-            obs.histogram("serve.prefill_s").observe(sp.duration_s)
+                    obs.trace.count_sync()
+            obs.histogram("serve.prefill_s").observe(time.perf_counter() - t0)
             self._check_logits(logits[:, -1])
             return logits, new_state
 
@@ -578,13 +579,15 @@ class ServingEngine:
         with obs.span("serve.bucket", batch=B, seq=len(reqs[0].prompt)):
             prompts = torch.from_numpy(
                 np.stack([r.prompt for r in reqs]).astype(np.int64)).to(dev)
-            with obs.span("serve.prefill") as sp:
+            t0 = time.perf_counter()
+            with obs.span("serve.prefill"):
                 faults.fault_point("serve.prefill")
                 logits, state = self._prefill(self.params, prompts)
                 logits = faults.poison("serve.prefill", logits)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-            obs.histogram("serve.prefill_s").observe(sp.duration_s)
+                    obs.trace.count_sync()
+            obs.histogram("serve.prefill_s").observe(time.perf_counter() - t0)
             self._check_logits(logits[:, -1])
             max_new = max(r.max_new for r in reqs)
             tok = self._sample(logits[:, -1], uids, [0] * B)[:, None]

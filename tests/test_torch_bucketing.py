@@ -83,6 +83,20 @@ def test_prepare_tiles_padding_matches_reference_arithmetic(chunk):
     assert not b.points[..., raw.cap:, :].any()
 
 
+@pytest.mark.parametrize("on_device", [False, True], ids=["numpy", "torch"])
+@pytest.mark.parametrize("mode", ["home", "overlap"])
+def test_copies_are_the_sum_of_the_loads_known_on_the_host(mode, on_device):
+    """``Buckets.copies`` (and with it ``replication_factor``) is a host
+    number that the bucketing already holds, the sum of the loads."""
+    ref, dom, pts = _case((40, 24, 20), 3.0, 2.0)
+    b = getattr(bucketing, f"bucket_points_{mode}")(
+        torch.from_numpy(pts) if on_device else pts, dom, (8, 8, 8))
+    assert isinstance(b.copies, int) and b.n_source == len(pts)
+    assert b.copies == int(b.counts.sum())
+    assert b.replication_factor == b.copies / len(pts)
+    assert (b.copies == len(pts)) == (mode == "home")
+
+
 # ------------------------------------------ torch bucketing on the device
 def _assert_same(got, want):
     """A torch ``Buckets`` holds exactly the reference's numpy arrays."""

@@ -244,9 +244,13 @@ def ref(tmp_path_factory):
 @pytest.fixture(autouse=True)
 def _clean_port_state():
     """The port's fault injector, metrics and tracer are process globals of
-    their own: start each test clean and leave nothing behind."""
+    their own: start each test clean and leave nothing behind. The tracer
+    records for the test (it is off by default): a test reads the
+    fallback's spans."""
     faults.configure("", 0)
+    trace.enable()
     yield
+    trace.enable(False)
     faults.reset()
     metrics.reset()
     trace.reset()

@@ -63,9 +63,13 @@ CROSS_TOL = dict(rtol=1e-5, atol=1e-8)
 @pytest.fixture(autouse=True)
 def _clean_port_state():
     """The port's fault injector, metrics registry and tracer are process
-    globals of their own: start each test clean and leave nothing behind."""
+    globals of their own: start each test clean and leave nothing behind.
+    The tracer records for the test (it is off by default): the tests read
+    the chunked runs' and the partial answers' spans."""
     faults.configure("", 0)
+    trace.enable()
     yield
+    trace.enable(False)
     faults.reset()
     metrics.reset()
     trace.reset()

@@ -1,7 +1,8 @@
 """The port's observability layer (counterparts of ``tests/test_obs.py``:
-spans, Chrome export, counters/gauges, histograms, registry merge and reset,
-the timer, the planner reconciliation) and the spans/counters of the layers
-that report into it."""
+spans, Chrome export, counters/gauges, histograms, registry reset, the
+timer, the planner reconciliation; and the port's own: a tracer off by
+default, its profiler ranges, query ids, device events and sync counts)
+and the spans/counters of the layers that report into it."""
 import json
 
 import numpy as np
@@ -24,16 +25,25 @@ from repro_torch.resilience.errors import NonFiniteOutputError
 @pytest.fixture(autouse=True)
 def _reset_port_obs():
     """Fresh port tracer + metrics registry + fault injector per test (the
-    reference's are reset by ``conftest.py``; the port's are its own)."""
+    reference's are reset by ``conftest.py``; the port's are its own). The
+    port's tracer records for the test, as its tests of the spans read them
+    (it is off by default)."""
+    trace.enable()
     yield
+    trace.enable(False)
     trace.reset()
     metrics.reset()
     faults.reset()
 
 
 # ------------------------------------------------------------------ trace
+def _on(tr):
+    tr.enabled = True
+    return tr
+
+
 def test_span_nesting_and_attrs():
-    tr = trace.Tracer()
+    tr = _on(trace.Tracer())
     with tr.span("outer", a=1):
         with tr.span("inner") as inner:
             inner.set(found=3)
@@ -56,7 +66,7 @@ def test_global_span_helper_records():
 
 
 def test_chrome_trace_schema(tmp_path):
-    tr = trace.Tracer()
+    tr = _on(trace.Tracer())
     with tr.span("phase", n=7, arr=np.arange(2), t=torch.zeros(1)):
         pass
     doc2 = json.loads(json.dumps(tr.to_chrome_trace()))
@@ -75,7 +85,7 @@ def test_chrome_trace_schema(tmp_path):
 
 def test_chrome_trace_matches_reference_schema():
     """Both packages write the same event for the same span."""
-    ours, theirs = trace.Tracer(), ref_trace.Tracer()
+    ours, theirs = _on(trace.Tracer()), ref_trace.Tracer()
     for tr in (ours, theirs):
         with tr.span("phase", n=7, s="x"):
             pass
@@ -85,27 +95,258 @@ def test_chrome_trace_matches_reference_schema():
         k: b[k] for k in ("name", "ph", "pid", "args")}
 
 
-def test_ingest_foreign_events():
-    tr = trace.Tracer()
-    tr.ingest([{"name": "child", "ph": "X", "ts": 1.0, "dur": 2.0,
-                "pid": 0, "tid": 0, "args": {}}], pid=42)
-    evs = tr.to_chrome_trace()["traceEvents"]
-    assert evs[0]["pid"] == 42
+def _no_cuda_calls(monkeypatch):
+    """Make every CUDA event and sync-debug call fail the test."""
+    def called(*a, **k):
+        raise AssertionError("the tracer touched CUDA while off")
+
+    for name in ("Event", "set_sync_debug_mode", "get_sync_debug_mode",
+                 "current_stream"):
+        monkeypatch.setattr(torch.cuda, name, called)
 
 
 def test_profiler_mirror_off_by_default_and_records_ranges_when_on():
-    assert trace.get_tracer().mirror_profiler is False
-    tr = trace.Tracer(mirror_profiler=True)
+    """A tracer is off until enabled or a profiler records; a span that
+    records is always a ``record_function`` range of the profiler."""
+    tr = trace.Tracer()
+    assert tr.enabled is False
+    with tr.span("mirror.probe") as sp:
+        torch.ones(4).sum()
+    assert sp is trace.OFF and not tr.spans()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with tr.span("mirror.probe"):
+        with tr.span("mirror.probe") as sp:
             torch.ones(4).sum()
+    assert sp.recording
     names = {e.key for e in prof.key_averages()}
     assert "mirror.probe" in names
-    assert tr.spans("mirror.probe")
-    trace.set_mirror_profiler(True)
-    assert trace.get_tracer().mirror_profiler is True
-    trace.set_mirror_profiler(False)
+    assert [s.name for s in tr.spans()] == ["mirror.probe"]
+    with tr.span("mirror.after"):
+        pass
+    assert [s.name for s in tr.spans()] == ["mirror.probe"]
+
+
+def test_tracer_off_records_nothing_allocates_nothing_touches_no_cuda(
+        monkeypatch):
+    """Off, ``span`` hands back one shared span that records nothing and
+    ignores attributes, whatever device or query it is given."""
+    _no_cuda_calls(monkeypatch)
+    tr = trace.Tracer()
+    a = tr.span("x", device="cuda", query=True, n=1)
+    b = tr.span("y", device=torch.device("cuda", 0))
+    assert a is b is trace.OFF
+    with a as sp:
+        sp.set(k=1)
+        tr.count_sync()
+    assert not sp.recording and dict(sp.attrs) == {}
+    assert tr.spans() == [] and tr._next_id == 0
+
+
+def test_stkde_with_the_tracer_off_records_no_span_and_no_cuda_call(
+        monkeypatch):
+    """Both single-device branches of ``stkde`` with the port's tracer off
+    and no profiler: no span, no CUDA event, no sync-debug call."""
+    from repro_torch.core import stkde
+
+    monkeypatch.setattr(trace.get_tracer(), "enabled", False)
+    trace.reset()
+    _no_cuda_calls(monkeypatch)
+    dom, pts = _small_query()
+    for tiled in (True, False):
+        stkde(pts, dom, use_tiled_kernel=tiled, device="cpu")
+    assert trace.get_tracer().spans() == []
+
+
+def test_tracer_records_while_a_cpu_profiler_session_records():
+    tr = trace.Tracer()
+    with tr.span("before"):
+        pass
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tr.span("during"):
+            pass
+    with tr.span("after"):
+        pass
+    assert [s.name for s in tr.spans()] == ["during"]
+    trace.enable(False)
+    try:
+        with trace.span("global.off"):
+            pass
+        assert not trace.get_tracer().spans("global.off")
+    finally:
+        trace.enable()
+
+
+def _small_query():
+    ref = RefDomain(gx=24.0, gy=18.0, gt=14.0, sres=1.0, tres=1.0, hs=3.0,
+                    ht=2.0)
+    return (convert.domain_from_reference(ref),
+            clustered_events(300, ref, seed=5))
+
+
+QUERY_SPANS = {
+    "tile": {"stkde.query", "stkde.validate", "stkde.h2d",
+             "bucketing.overlap", "bucketing.pad", "stkde.tile.inputs",
+             "stkde.finish"},
+    "pb": {"stkde.query", "stkde.validate", "stkde.h2d", "stkde.scatter",
+           "stkde.finish"},
+}
+
+
+@pytest.mark.parametrize("path", sorted(QUERY_SPANS))
+def test_query_spans_are_profiler_annotations_nested_around_their_ops(
+        path, tmp_path):
+    """Every span of a query on the CPU is a ``user_annotation`` of the
+    profiler's exported trace, inside its parent's annotation as the tracer
+    nests it, with the ops it ran inside it."""
+    from repro_torch.core import stkde
+
+    trace.enable(False)
+    trace.reset()
+    dom, pts = _small_query()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            stkde(pts, dom, use_tiled_kernel=path == "tile", device="cpu")
+    finally:
+        trace.enable()
+    spans = {s.name: s for s in trace.get_tracer().spans()}
+    assert set(spans) == QUERY_SPANS[path]
+    assert spans["stkde.query"].attrs["path"] == path
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    ann = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    assert set(spans) <= set(ann)
+
+    def inside(e, outer):
+        return (outer["ts"] <= e["ts"]
+                and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"])
+
+    by_id = {s.span_id: s for s in spans.values()}
+    for name, sp in spans.items():
+        if sp.parent_id is not None:
+            assert inside(ann[name], ann[by_id[sp.parent_id].name]), name
+        if name != "stkde.validate":          # numpy: no op of torch
+            assert any(inside(op, ann[name]) for op in ops), name
+
+
+def test_spans_of_one_query_share_its_id():
+    from repro_torch.core import stkde
+
+    trace.reset()
+    dom, pts = _small_query()
+    with trace.span("outside"):
+        pass
+    for tiled in (True, False):
+        stkde(pts, dom, use_tiled_kernel=tiled, device="cpu")
+    spans = trace.get_tracer().spans()
+    roots = [s for s in spans if s.name == "stkde.query"]
+    assert len(roots) == 2
+    assert {s.query for s in roots} == {s.span_id for s in roots}
+    for s in spans:
+        if s.name == "outside":
+            assert s.query is None and "syncs" not in s.attrs
+        else:
+            assert s.query in {r.span_id for r in roots}
+            assert s.attrs["syncs"] == 0       # no card: nothing waits
+    assert len({s.query for s in spans if s.query is not None}) == 2
+    assert all("query" in e["args"] for e in trace.get_tracer(
+        ).to_chrome_trace()["traceEvents"] if e["name"] != "outside")
+
+
+def test_sync_warnings_count_against_the_innermost_span():
+    """Inside a query span each sync warning is counted against the
+    innermost open span and not shown; other warnings are shown as ever,
+    and after the query a sync warning is an ordinary warning again."""
+    import warnings
+
+    tr = _on(trace.Tracer())
+    with warnings.catch_warnings(record=True) as shown:
+        warnings.simplefilter("always")
+        with tr.span("q", query=True):
+            warnings.warn(trace.SYNC_WARNING)
+            with tr.span("a"):
+                with tr.span("b"):
+                    for _ in range(3):
+                        warnings.warn(trace.SYNC_WARNING)
+                warnings.warn(trace.SYNC_WARNING + " (counted)")
+                warnings.warn("something else")
+                tr.count_sync(2)
+        warnings.warn(trace.SYNC_WARNING)
+    assert [str(w.message) for w in shown] == [
+        "something else", trace.SYNC_WARNING]
+    got = {s.name: s.attrs for s in tr.spans()}
+    assert got["b"]["syncs"] == 3 and got["a"]["syncs"] == 3
+    assert got["q"]["syncs"] == 1 and got["q"]["syncs_total"] == 7
+
+
+def test_count_sync_counts_against_the_open_span_only():
+    """Outside a query a span carries ``syncs`` only where some were
+    counted by hand; with no span open a count goes nowhere."""
+    tr = _on(trace.Tracer())
+    tr.count_sync()
+    with tr.span("waits"):
+        tr.count_sync()
+    with tr.span("plain"):
+        pass
+    got = {s.name: s.attrs for s in tr.spans()}
+    assert got == {"waits": {"syncs": 1}, "plain": {}}
+
+
+def test_span_cap_drops_the_oldest_first():
+    tr = _on(trace.Tracer(max_spans=3))
+    for i in range(5):
+        with tr.span(f"s{i}"):
+            pass
+    assert [s.name for s in tr.spans()] == ["s2", "s3", "s4"]
+    assert tr.dropped == 2
+    tr.clear()
+    assert tr.spans() == [] and tr.dropped == 0
+
+
+def test_device_events_are_recorded_on_the_stream_and_read_late(
+        monkeypatch):
+    """With ``device=`` a card, a span records one event at its open and one
+    at its close on the device's current stream, and reads their time only
+    when the spans are read; a query span turns the sync debug mode to
+    "warn" and back."""
+    log = []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            self.at = None
+
+        def record(self, stream):
+            log.append(("record", stream))
+            self.at = len(log)
+
+        def synchronize(self):
+            log.append(("synchronize",))
+
+        def elapsed_time(self, end):
+            return 0.5 * (end.at - self.at)
+
+    modes = ["default"]
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: "stream")
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode",
+                        lambda: modes[-1])
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", modes.append)
+    tr = _on(trace.Tracer())
+    with tr.span("q", device="cuda", query=True):
+        assert modes == ["default", "warn"]
+        with tr.span("inner", device=torch.device("cuda")):
+            pass
+    assert modes == ["default", "warn", "default"]
+    assert [x[0] for x in log] == ["record"] * 4
+    assert all(x[1] == "stream" for x in log)
+    got = {s.name: s.device_ms for s in tr.spans()}
+    assert got == {"inner": 0.5, "q": 1.5}
+    assert [x[0] for x in log[4:]] == ["synchronize"] * 2
+    tr.spans()                                  # resolved once
+    assert len(log) == 6
 
 
 # ---------------------------------------------------------------- metrics
@@ -141,22 +382,8 @@ def test_histogram_nonpositive_and_empty():
     assert h.percentile(0.5) == -1.0  # underflow bucket reports min
 
 
-def test_registry_merge_cross_process_shape():
-    r = metrics.Registry()
-    h = r.histogram("x_s")
-    for v in (0.1, 0.2, 0.3):
-        h.observe(v)
-    r.counter("n").inc(5)
-    r2 = metrics.Registry()
-    r2.merge(json.loads(json.dumps(r.to_dict())))
-    d = r2.to_dict()
-    assert d["counters"]["n"] == 5
-    assert d["histograms"]["x_s"]["count"] == 3
-    assert d["histograms"]["x_s"]["min"] == pytest.approx(0.1)
-
-
 def test_registry_dict_is_the_references():
-    """A registry exported by one package merges into the other's."""
+    """A registry exported by the port merges into the reference's."""
     r = metrics.Registry()
     r.counter("n").inc(2)
     r.histogram("x_s").observe(0.5)
@@ -210,10 +437,14 @@ def test_bucketing_spans_recorded_with_the_references_attributes():
     for name in ("bucketing.home", "bucketing.overlap"):
         (ours,) = trace.get_tracer().spans(name)
         (theirs,) = ref_trace.get_tracer().spans(name)
+        # the port's overlap span adds the copies, a host number
+        copies = ours.attrs.pop("copies", None)
         assert ours.attrs == theirs.attrs
         assert ours.attrs["n"] == 200 and ours.attrs["cap"] >= 1
     assert "replication" in trace.get_tracer().spans(
         "bucketing.overlap")[0].attrs
+    assert copies == int(ref_bucketing.bucket_points_overlap(
+        pts, ref, (8, 8, 4)).counts.sum())
 
 
 def test_nonfinite_output_counted():

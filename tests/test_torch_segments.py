@@ -21,7 +21,7 @@ from repro_torch.core import bucketing, get_instance
 from repro_torch.kernels import build
 from repro_torch.kernels import ops
 from repro_torch.kernels.stkde_tile import (
-    PANEL, SegmentPlan, choose_seg, plan_segments)
+    PANEL, SegmentPlan, choose_seg, plan_counts, plan_segments, walked_pairs)
 
 
 def _check_plan(loads, seg: int, plan: SegmentPlan) -> None:
@@ -86,6 +86,39 @@ def test_plan_small_cases(loads, seg, n_items, slots):
     assert plan.segments == n_items and plan.slots == slots
 
 
+def _walk_by_hand(plan: SegmentPlan, tile) -> int:
+    """The (point, voxel) pairs of ``csrc/stkde_tile.cu``'s split pass, one
+    by one: each item's panels of PANEL points from ``q0``, in each its
+    ``nk = min(KSTEPS, (len - q0 + 7) >> 3)`` k-steps of 8 points, each
+    point against every column and every t of the tile."""
+    bx, by, bt = tile
+    pairs = 0
+    for _, _, length, _ in plan.items.tolist():
+        for q0 in range(0, length, PANEL):
+            nk = min(PANEL // 8, (length - q0 + 7) >> 3)
+            for _ in range(nk * 8):
+                for _ in range(bx * by):
+                    pairs += bt
+    return pairs
+
+
+@pytest.mark.parametrize("loads,seg,tile", [
+    ([0], 64, (8, 8, 8)),
+    ([1, 7, 8, 9], 64, (8, 8, 8)),
+    ([65, 64, 63, 130], 64, (8, 16, 8)),
+    ([200, 0, 3], 128, (16, 8, 16)),
+    ([1000, 999, 1], 192, (8, 8, 16)),
+])
+def test_walked_pairs_match_a_walk_by_hand(loads, seg, tile):
+    plan = plan_segments(loads, seg)
+    assert walked_pairs(plan, tile) == _walk_by_hand(plan, tile)
+    got = plan_counts(plan, 1024, tile)
+    assert got == {"tiles": len(loads), "items": plan.segments,
+                   "split_tiles": len(plan.reduce), "seg": seg,
+                   "copies": sum(loads), "slots": len(loads) * 1024,
+                   "walked_pairs": _walk_by_hand(plan, tile)}
+
+
 def test_plan_without_counts_covers_cap():
     """The wrapper plans a launch without counts over cap for every tile:
     the run over whole buckets is cut at the same multiples of seg, so its
@@ -131,7 +164,7 @@ def test_plan_at_pollen_us_hr_lb_counts(monkeypatch):
         counts = np.bincount(ids, minlength=int(np.prod(nt)))
         # what the bucketing span reads, beside the loads
         return types.SimpleNamespace(counts=counts, cap=int(counts.max()),
-                                     replication_factor=0.0)
+                                     replication_factor=0.0, copies=len(ids))
 
     monkeypatch.setattr(bucketing, "_densify", loads_only)
     inst = get_instance("PollenUS_Hr-Lb")

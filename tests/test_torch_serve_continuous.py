@@ -53,10 +53,14 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture(autouse=True)
 def _fresh_state():
-    """Fresh port and reference fault injectors, port tracer and metrics."""
+    """Fresh port and reference fault injectors, port tracer and metrics;
+    the port's tracer records for the test (it is off by default), as the
+    tests read the engine's spans."""
     faults.configure("", 0)
     ref_faults.configure("", 0)
+    trace.enable()
     yield
+    trace.enable(False)
     trace.reset()
     metrics.reset()
     faults.reset()

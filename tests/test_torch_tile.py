@@ -24,6 +24,7 @@ from repro_torch.core import kernels_math as km
 from repro_torch.core.pb import pb
 from repro_torch.kernels import stkde_tiled, stkde_tiles_cuda, stkde_tiles_ref
 from repro_torch.kernels import stkde_tile
+from repro_torch.obs import metrics
 from repro_torch.resilience.errors import KernelUnavailableError
 
 from test_torch_foundations import NONUNIT, TILE_CASES
@@ -175,11 +176,13 @@ def _small_inputs():
 
 def test_compiled_mode_on_cpu_tensors_raises():
     dom, t, n = _small_inputs()
-    before = stkde_tile.launch_count()
+    # launches are counted by the registry counter stkde_tile.launches
+    launches = metrics.counter(stkde_tile.LAUNCHES)
+    before = launches.value
     with pytest.raises(KernelUnavailableError, match="compiled"):
         stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, t.tile, t.cap, n,
                          mode="compiled")
-    assert stkde_tile.launch_count() == before   # nothing was launched
+    assert launches.value == before   # nothing was launched
     with pytest.raises(ValueError, match="mode"):
         stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, t.tile, t.cap, n,
                          mode="interpret")

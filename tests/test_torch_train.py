@@ -75,8 +75,13 @@ STEP_ATOL_LR = 0.05
 
 @pytest.fixture(autouse=True)
 def _fresh_state():
+    """Fresh port fault injector, tracer and metrics; the tracer records for
+    the test (it is off by default), as the tests read the steps' and the
+    checkpoints' spans."""
     faults.configure("", 0)
+    trace.enable()
     yield
+    trace.enable(False)
     trace.reset()
     metrics.reset()
     faults.reset()
