@@ -578,8 +578,8 @@ def phase_kernels() -> dict:
 
 def phase_main_path(kern: dict) -> dict:
     """``stkde`` through the public entry point with the default device, both
-    branches, on two Table-2 rows at full n. Returns the kernel's launches
-    and each instance's tile-branch grid."""
+    branches, on two Table-2 rows at full n. Returns the tile kernel's
+    launches, the scatter kernel's, and each instance's tile-branch grid."""
     from repro_torch.core import get_instance, stkde
 
     instances = [get_instance(n) for n in ("Dengue_Lr-Hb", "PollenUS_Hr-Lb")]
@@ -594,7 +594,7 @@ def phase_main_path(kern: dict) -> dict:
 
     # Each query twice: the first pays one-time costs of the process (CUDA
     # module loading, the allocator's first blocks), the second is steady.
-    launches0 = tile_launches()
+    launches0, scatter0 = tile_launches(), scatter_launches()
     runs = []
     for inst, dom, pts in data:
         _, tile_first_s = timed_query(pts, dom, True)
@@ -604,9 +604,10 @@ def phase_main_path(kern: dict) -> dict:
         runs.append((inst, dom, pts, tiled, scatter, tile_s, scatter_s,
                      tile_first_s, scatter_first_s))
     launches = tile_launches() - launches0
+    scatter_n = scatter_launches() - scatter0
 
     rows = []
-    ok = launches == 2 * len(data)
+    ok = launches == 2 * len(data) and scatter_n == 2 * len(data)
     for (inst, dom, pts, tiled, scatter, tile_s, scatter_s, tile_first_s,
          scatter_first_s) in runs:
         if inst.name == "PollenUS_Hr-Lb":   # staged in the kernels phase
@@ -654,10 +655,11 @@ def phase_main_path(kern: dict) -> dict:
                      and st["buckets_bit_identical_to_numpy"]["ok"])
         ok = ok and row["ok"]
         rows.append(row)
-    emit("main_path", launches=launches, instances=rows)
+    emit("main_path", launches=launches, scatter_launches=scatter_n,
+         instances=rows)
     if not ok:
         fail("main path: a check failed (see the main_path line)")
-    return {"launches": launches,
+    return {"launches": launches, "scatter_launches": scatter_n,
             "tiled": {r[0].name: r[3] for r in runs}}
 
 
@@ -749,6 +751,151 @@ def phase_gold(main: dict) -> int:
     if not ok:
         fail("gold: a grid disagrees with vb (see the gold line)")
     return launches
+
+
+def scatter_launches() -> int:
+    """Launches of the scatter kernel in this process so far: the port's
+    registry counter ``stkde_scatter.launches``."""
+    from repro_torch.kernels import stkde_scatter
+    from repro_torch.obs import metrics
+
+    return int(metrics.counter(stkde_scatter.LAUNCHES).value)
+
+
+def phase_scatter() -> dict:
+    """The PB-SYM scatter kernel (``csrc/stkde_scatter.cu``) at full-size
+    ``PollenUS_Hr-Lb``: against the loop it replaced (``_scatter_loop``, run
+    on the card) by the benchmark's ``grid_err`` measure, beside the limit
+    of ``stkde_bench/limits/pollenus_hr.scatter_lb.json``, and so at
+    full-size ``Dengue_Lr-Hb``, the main path's other shape; one launch and no
+    host sync inside ``stkde.scatter`` in a query; the kernel's time beside
+    the least time of ``stkde_bench/roofline.py`` and the loop's; ``dr`` on
+    four shards of this card through the kernel against the single-device
+    grid; and a hash of the chunked path's fixed-order grid, which the
+    kernel leaves alone (the parent's bits)."""
+    import hashlib
+    import importlib
+
+    from repro_torch.core import get_instance, stkde
+    from repro_torch.core import kernels_math as km
+    from repro_torch.distributed import make_host_mesh
+    from repro_torch.obs import trace
+    from stkde_bench import check, roofline
+    from stkde_bench.reference.pbsym import Box
+
+    pbm = importlib.import_module("repro_torch.core.pb")
+    limit = json.loads((ROOT / "stkde_bench" / "limits"
+                        / "pollenus_hr.scatter_lb.json").read_text())
+
+    def on_card(name):
+        inst = get_instance(name)
+        dom, pts = inst.domain(), inst.points()
+        return (inst, dom, pts, torch.from_numpy(pts).cuda(),
+                Box(*dom.grid_shape, dom.sres, dom.tres, dom.hs, dom.ht))
+
+    def kernel_of(dev_pts, dom):
+        return lambda: pbm._pb_impl(dev_pts, dom, "sym", km.DEFAULT_KS,
+                                    km.DEFAULT_KT, 1 << 22)
+
+    def loop_of(dev_pts, dom):
+        return lambda: pbm._scatter_loop(
+            dev_pts, dom, "sym", km.DEFAULT_KS, km.DEFAULT_KT, 1 << 22,
+            len(dev_pts), False, trace.OFF)
+
+    def rel_err_in(box, n):
+        def rel_err(got, want) -> float:
+            """max |got - want| / max(|want|, tau): ``check.grid_err``'s
+            measure, against a grid in place of the float64 reference."""
+            tau = check.tau(box, n)
+            return float(((got.double() - want.double()).abs()
+                          / want.double().abs().clamp_min(tau)).max())
+        return rel_err
+
+    d_inst, d_dom, d_pts, d_dev, d_box = on_card("Dengue_Lr-Hb")
+    d_before = scatter_launches()
+    d_grid = kernel_of(d_dev, d_dom)()
+    d_launches = scatter_launches() - d_before
+    dengue = {"instance": d_inst.name, "n": len(d_pts),
+              "grid": list(d_dom.grid_shape), "Hs": d_dom.Hs,
+              "Ht": d_dom.Ht, "launches": d_launches,
+              "kernel_vs_loop_rel_err": rel_err_in(d_box, len(d_pts))(
+                  d_grid, loop_of(d_dev, d_dom)())}
+    del d_grid, d_dev
+
+    inst, dom, pts, dev_pts, box = on_card("PollenUS_Hr-Lb")
+    n = len(pts)
+    kernel, loop = kernel_of(dev_pts, dom), loop_of(dev_pts, dom)
+    rel_err = rel_err_in(box, n)
+
+    launches0 = scatter_launches()
+    kernel_ms, grid = cuda_ms(kernel, warmup=2, runs=10)
+    launches = scatter_launches() - launches0
+    loop_ms, want = cuda_ms(loop, warmup=1, runs=2)
+    again = kernel()
+    least = roofline.least_time(pts, box, torch.cuda.get_device_name(0),
+                                dev_pts.device)
+    vs_loop = rel_err(grid, want)
+    del want
+
+    with traced():
+        before = scatter_launches()
+        query = stkde(pts, dom)
+        query_launches = scatter_launches() - before
+    (sp,) = trace.get_tracer().spans("stkde.scatter")
+    (q,) = trace.get_tracer().spans("stkde.query")
+    query_vs_kernel = rel_err(query, grid)
+    del query
+
+    before = scatter_launches()
+    mesh = make_host_mesh(4, device="cuda")
+    dr = stkde(pts, dom, mesh=mesh, strategy="dr")
+    dr_launches = scatter_launches() - before
+    dr_vs_single = rel_err(dr, grid)
+    del dr
+
+    fixed = fixed_order_scatter(dev_pts, dom)
+    fixed_sha = hashlib.sha256(fixed.cpu().numpy().tobytes()).hexdigest()
+    fixed_again = bool(torch.equal(fixed, fixed_order_scatter(dev_pts, dom)))
+    del fixed
+
+    row = {
+        "instance": inst.name, "n": n, "grid": list(dom.grid_shape),
+        "Hs": dom.Hs, "Ht": dom.Ht,
+        "kernel_ms": kernel_ms, "loop_ms": loop_ms,
+        "least_ms": None if least is None else 1e3 * least["seconds"],
+        "least_time": least,
+        "support_pairs_per_s": (None if least is None else
+                                least["support_pairs"] / (kernel_ms / 1e3)),
+        "launches_in_timing": launches, "timed_calls": 12,
+        "kernel_vs_loop_rel_err": vs_loop,
+        "two_launches_bit_identical": bool(torch.equal(grid, again)),
+        "two_launches_rel_err": rel_err(again, grid),
+        "limit": limit["grid_err"],
+        "query": {"launches": query_launches, "path": sp.attrs.get("path"),
+                  "span_launches": sp.attrs.get("launches"),
+                  "scatter_syncs": sp.attrs.get("syncs"),
+                  "query_syncs": q.attrs.get("syncs_total"),
+                  "scatter_device_ms": sp.device_ms,
+                  "vs_kernel_rel_err": query_vs_kernel},
+        "dr_4_shards": {"launches": dr_launches,
+                        "vs_single_rel_err": dr_vs_single},
+        "fixed_order": {"sha256": fixed_sha, "bit_identical": fixed_again},
+        "dengue": dengue,
+    }
+    ok = (launches == 12 and vs_loop <= limit["grid_err"]
+          and d_launches == 1
+          and dengue["kernel_vs_loop_rel_err"] <= limit["grid_err"]
+          and row["two_launches_rel_err"] <= limit["grid_err"]
+          and query_launches == 1 and sp.attrs.get("path") == "kernel"
+          and sp.attrs.get("launches") == 1 and sp.attrs.get("syncs") == 0
+          and query_vs_kernel <= limit["grid_err"]
+          and dr_launches == 4 and dr_vs_single <= limit["grid_err"]
+          and fixed_again and tuple(grid.shape) == dom.grid_shape
+          and bool(torch.isfinite(grid).all()))
+    emit("scatter", **row)
+    if not ok:
+        fail("scatter: a check failed (see the scatter line)")
+    return row
 
 
 def scatter_adding_with(pts: torch.Tensor, dom, add) -> torch.Tensor:
@@ -3783,6 +3930,8 @@ def main() -> None:
     kern = phase_kernels()
     main = phase_main_path(kern)
     launches = main["launches"] + phase_gold(main)
+    scatter = {**phase_scatter(), "main_path_launches":
+               main["scatter_launches"]}
     phase_chunked()
     launches += phase_distributed(dev)
     launches += phase_planner(dev)
@@ -3803,6 +3952,15 @@ def main() -> None:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "stkde_scatter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stkde_scatter.cu",
+        "replaces": None, "launches": scatter["main_path_launches"],
+        "max_rel_err": scatter["kernel_vs_loop_rel_err"],
+        "ms": scatter["kernel_ms"], "plain_ms": scatter["loop_ms"],
+        "bound_ms": scatter["least_ms"],
+        "bound_by": (scatter["least_time"] or {}).get("bound_by"),
         "library_ms": None,
     }]}), flush=True)
     print(dev["nvidia_smi"], flush=True)

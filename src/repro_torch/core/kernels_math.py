@@ -12,8 +12,8 @@ alternative kernels can be swapped in. The structural property every
 algorithm relies on is *separability*:
 ``contribution(X, Y, T) = Ks(X, Y) * Kt(T)``.
 
-The CUDA tile kernel cannot call a Python function: it switches on an integer
-id. ``KERNEL_IDS`` maps each callable above to that id; ``spatial_kernel_id``
+The CUDA kernels (tile and scatter) cannot call a Python function: they
+switch on an integer id. ``KERNEL_IDS`` maps each callable above to that id; ``spatial_kernel_id``
 / ``temporal_kernel_id`` look one up and refuse a callable the kernel does
 not know.
 """
@@ -64,7 +64,8 @@ def kt_paper_verbatim(w: Array) -> Array:
 DEFAULT_KS: SpatialKernel = ks_epanechnikov
 DEFAULT_KT: TemporalKernel = kt_epanechnikov
 
-# The integers `csrc/stkde_tile.cu` switches on (KS_* / KT_* there).
+# The integers `csrc/stkde_tile.cu` and `csrc/stkde_scatter.cu` switch on
+# (KS_* / KT_* there).
 KERNEL_IDS: Dict[Callable, int] = {
     ks_epanechnikov: 0,
     ks_paper_verbatim: 1,
@@ -79,7 +80,7 @@ def _kernel_id(fn: Callable, known, role: str) -> int:
     if fn not in known:
         names = ", ".join(f.__name__ for f in known)
         raise KernelUnavailableError(
-            f"the CUDA tile kernel has no id for {role}="
+            f"the CUDA kernels have no id for {role}="
             f"{getattr(fn, '__name__', fn)!r} (it knows: {names}); run it on "
             "CPU tensors, where the plain version takes any callable"
         )
@@ -92,6 +93,11 @@ def spatial_kernel_id(ks: SpatialKernel) -> int:
 
 def temporal_kernel_id(kt: TemporalKernel) -> int:
     return _kernel_id(kt, _TEMPORAL, "kt")
+
+
+def known_to_kernels(ks: SpatialKernel, kt: TemporalKernel) -> bool:
+    """Whether the CUDA kernels have an id for both ``ks`` and ``kt``."""
+    return ks in _SPATIAL and kt in _TEMPORAL
 
 
 def normalization(n: int, hs: float, ht: float) -> float:

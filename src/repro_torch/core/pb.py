@@ -14,12 +14,24 @@ benchmark can reproduce the paper's flop-reduction story. The redundant work
 in PB / PB-DISK / PB-BAR is expressed through *materialized* broadcasts, which
 eager PyTorch really performs.
 
-This module is plain PyTorch on whatever device it is given; the hand-written
-path is ``repro_torch.kernels`` (the tile kernel). Both are cross-tested. On
-CUDA ``index_add_`` adds with atomics, so the order of each voxel's sum, and
-with it the last bits of the result, change from run to run; ``_pb_impl``'s
-``deterministic`` switch (taken by the chunked path) adds in a fixed order
-(``_add_in_order``).
+``_pb_impl`` has two scatters that share no code (``scatter_route`` picks):
+
+  kernel  ``kernels/csrc/stkde_scatter.cu``, one launch of a hand-written
+          CUDA kernel that adds each point's non-zero, in-grid pairs with
+          atomics: CUDA points, PB-SYM, ``deterministic=False`` and kernel
+          functions with a CUDA id (the single query and the mesh shards).
+  loop    plain PyTorch on whatever device it is given: blocks of points,
+          each materialising its ``(B, Dx*Dy*Dt)`` indices and values for
+          ``index_add_``. Everything else: CPU tensors (every CPU test), the
+          PB / PB-DISK / PB-BAR variants, the chunked path's fixed order,
+          callables without an id.
+
+On CUDA both add with atomics, so the order of each voxel's sum, and with
+it the last bits of the result, change from run to run; ``_pb_impl``'s
+``deterministic`` switch (taken by the chunked path) sends the loop's blocks
+through ``_add_in_order``, a fixed order. The loop on the card is the
+kernel's yardstick (``chip_smoke.py``); the tile kernel
+(``repro_torch.kernels``) is cross-tested against both.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from .geometry import Domain
 from . import kernels_math as km
@@ -155,6 +168,17 @@ def _add_in_order(grid: torch.Tensor, lin: torch.Tensor,
     grid.index_add_(0, voxels.to(torch.int64), sums)
 
 
+def scatter_route(device_type: str, variant: str, deterministic: bool,
+                  ks, kt) -> str:
+    """The scatter ``_pb_impl`` runs: ``"kernel"`` for points on a CUDA
+    device, the PB-SYM variant, atomic adds and kernel functions the CUDA
+    kernels have an id for; ``"loop"`` otherwise."""
+    if (device_type == "cuda" and variant == "sym" and not deterministic
+            and km.known_to_kernels(ks, kt)):
+        return "kernel"
+    return "loop"
+
+
 def _pb_impl(
     points: torch.Tensor,
     dom: Domain,
@@ -165,34 +189,60 @@ def _pb_impl(
     n_total: Optional[int] = None,
     deterministic: bool = False,
 ) -> torch.Tensor:
-    """The blocked scatter. ``deterministic=True`` (taken by the chunked
-    path) makes a CUDA grid come out with the same bits on every run: each
-    block is added by ``_add_in_order`` in place of ``index_add_``, whose
-    atomics add in an order that changes from run to run. On the CPU
-    ``index_add_`` adds in order, so nothing changes there."""
+    """The scatter, by the route ``scatter_route`` picks. ``deterministic=
+    True`` (taken by the chunked path) makes a CUDA grid come out with the
+    same bits on every run: each block of the loop is added by
+    ``_add_in_order`` in place of ``index_add_``, whose atomics add in an
+    order that changes from run to run. On the CPU ``index_add_`` adds in
+    order, so nothing changes there."""
     n = points.shape[0]
     n_norm = n if n_total is None else n_total
-    gsz = dom.grid_voxels
-    if gsz >= 2**30:
+    if dom.grid_voxels >= 2**30:
         raise ValueError(
             "scatter-path PB needs grid < 2^30 voxels; use the tiled kernel "
             "or the distributed strategies for larger grids"
         )
+    route = scatter_route(points.device.type, variant, deterministic, ks, kt)
     with obs_trace.span("stkde.scatter", device=points.device) as sp:
-        pts_b, vox_b = _padded_blocks(points, dom,
-                                      _block_size(dom, budget_elems))
-        if sp.recording:
-            sp.set(blocks=len(pts_b))
-        grid = torch.zeros((gsz + 1,), dtype=torch.float32,
-                           device=points.device)     # +1 slot absorbs drops
-        in_order = deterministic and grid.is_cuda
-        for p, v in zip(pts_b, vox_b):
-            lin, vals = _cylinder_values(p, v, dom, variant, ks, kt, n_norm)
-            if in_order:
-                _add_in_order(grid, lin.reshape(-1), vals.reshape(-1))
-            else:
-                grid.index_add_(0, lin.reshape(-1), vals.reshape(-1))
-        return grid[:gsz].reshape(dom.grid_shape)
+        if route == "kernel":
+            return _scatter_kernel(points, dom, ks, kt, n_norm, sp)
+        return _scatter_loop(points, dom, variant, ks, kt, budget_elems,
+                             n_norm, deterministic, sp)
+
+
+def _scatter_kernel(points, dom, ks, kt, n_norm, sp) -> torch.Tensor:
+    """One launch of ``csrc/stkde_scatter.cu``; the span gets the route and
+    the launches counted while it ran."""
+    from ..kernels import stkde_scatter
+
+    launches = obs_metrics.counter(stkde_scatter.LAUNCHES)
+    before = launches.value
+    grid = stkde_scatter.stkde_scatter_cuda(
+        points.to(torch.float32).contiguous(), dom, n_norm, ks, kt)
+    if sp.recording:
+        sp.set(path="kernel", launches=int(launches.value - before))
+    return grid
+
+
+def _scatter_loop(points, dom, variant, ks, kt, budget_elems, n_norm,
+                  deterministic, sp) -> torch.Tensor:
+    """The blocked loop: ``index_add_`` (or ``_add_in_order``) of each
+    block's materialised indices and values into a grid with a drop slot."""
+    gsz = dom.grid_voxels
+    pts_b, vox_b = _padded_blocks(points, dom,
+                                  _block_size(dom, budget_elems))
+    if sp.recording:
+        sp.set(path="loop", blocks=len(pts_b), launches=0)
+    grid = torch.zeros((gsz + 1,), dtype=torch.float32,
+                       device=points.device)     # +1 slot absorbs drops
+    in_order = deterministic and grid.is_cuda
+    for p, v in zip(pts_b, vox_b):
+        lin, vals = _cylinder_values(p, v, dom, variant, ks, kt, n_norm)
+        if in_order:
+            _add_in_order(grid, lin.reshape(-1), vals.reshape(-1))
+        else:
+            grid.index_add_(0, lin.reshape(-1), vals.reshape(-1))
+    return grid[:gsz].reshape(dom.grid_shape)
 
 
 def _as_points(points, device: DeviceLike) -> torch.Tensor:

@@ -3,6 +3,10 @@
 csrc/stkde_tile.cu — PB-SYM tile accumulation, CUDA C++ for sm_90a
                      (work items over the tiles' points, 3xTF32 mma.sync)
 stkde_tile.py      — its wrapper (work plan, launch, launch counter, modes)
+csrc/stkde_scatter.cu — the PB-SYM scatter in one launch, CUDA C++ for
+                     sm_90a (a warp a point, vector atomics along t); the
+                     route of core/pb.py::_pb_impl on CUDA
+stkde_scatter.py   — its wrapper (checks, launch, launch counter)
 build.py           — nvcc build of csrc/ at first use, ctypes loading
 ops.py             — public wrappers (bucketing + kernel + slice)
 ref.py             — the plain PyTorch version (CPU path, allclose target)
