@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
+from .core.bucketing import padded_name
 from .core.geometry import Domain
 from .train.optimizer import OptState
 
@@ -28,38 +29,63 @@ def domain_from_reference(dom: Any) -> Domain:
 
 
 class TileInputs(NamedTuple):
-    """What the tile kernel and its plain version take, on one device."""
+    """What the tile kernel and its plain version take, on one device: the
+    packed buckets (``core/bucketing.py::PackedBuckets``)."""
 
-    pts_tiles: torch.Tensor    # (ntx, nty, ntt, cap, 3) float32
-    valid_tiles: torch.Tensor  # (ntx, nty, ntt, cap) float32 {0, 1}
-    counts: torch.Tensor       # (ntx, nty, ntt) int32 true tile loads
+    points: torch.Tensor   # (copies, 3) float32, tile after tile
+    offsets: torch.Tensor  # (ntiles + 1,) int64: where each tile's run starts
+    counts: torch.Tensor   # (ntx, nty, ntt) int32 tile loads
     tile: Tuple[int, int, int]
-    cap: int
+    cap: int               # the longest run
+
+    # The padded layout's names, kept only for the benchmark's staged copy
+    # of the tile branch (stkde_bench/staged/tile.py); each read warns.
+    @property
+    def pts_tiles(self) -> torch.Tensor:
+        padded_name("TileInputs.pts_tiles", "points")
+        return self.points
+
+    @property
+    def valid_tiles(self) -> torch.Tensor:
+        padded_name("TileInputs.valid_tiles", "offsets")
+        return self.offsets
 
 
-def buckets_to_torch(points, valid, counts, tile: Tuple[int, int, int],
+def buckets_to_torch(points, offsets, counts, tile: Tuple[int, int, int],
                      cap: int, device: DeviceLike = None) -> TileInputs:
-    """Turn ``Buckets`` arrays (``points``, ``valid``, ``counts``: numpy
-    arrays, or tensors) into the tensors the tile kernel takes.
+    """Turn packed buckets' arrays (``points``, ``offsets``, ``counts``:
+    numpy arrays, or tensors) into the tensors the tile kernel takes.
     ``device=None`` means ``"cuda"``. Tensors already on the device are not
-    copied."""
+    copied; nothing of ``ntiles x cap`` is made. ``reference_buckets``
+    packs the reference's padded arrays."""
     dev = resolve_device(device)
-    points = torch.as_tensor(points)
-    if points.ndim != 5 or tuple(points.shape[3:]) != (cap, 3):
+    points, offsets = torch.as_tensor(points), torch.as_tensor(offsets)
+    counts = torch.as_tensor(counts)
+    if points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be (copies, 3); got {points.shape}")
+    if counts.ndim != 3 or offsets.shape != (counts.numel() + 1,):
         raise ValueError(
-            f"points must be (ntx, nty, ntt, {cap}, 3); got {points.shape}")
-    valid, counts = torch.as_tensor(valid), torch.as_tensor(counts)
-    if valid.shape != points.shape[:4] or counts.shape != points.shape[:3]:
-        raise ValueError(
-            f"valid {tuple(valid.shape)} / counts {tuple(counts.shape)} do "
-            f"not match points {tuple(points.shape)}")
+            f"offsets {tuple(offsets.shape)} / counts {tuple(counts.shape)} "
+            f"do not make ntiles + 1 offsets of (ntx, nty, ntt) tiles")
     return TileInputs(
         points.to(dev, torch.float32).contiguous(),
-        valid.to(dev, torch.float32).contiguous(),
+        offsets.to(dev, torch.int64).contiguous(),
         counts.to(dev, torch.int32).contiguous(),
         tuple(int(b) for b in tile),
         int(cap),
     )
+
+
+def reference_buckets(points, valid, counts):
+    """The reference's padded buckets (``points`` (ntx, nty, ntt, cap, 3),
+    ``valid``, ``counts``: numpy arrays) packed as the port's tile branch
+    holds them: each bucket's valid slots in order, tile after tile, and the
+    offsets of the runs. Returns ``(points, offsets, counts)``."""
+    points, valid = np.asarray(points), np.asarray(valid, dtype=bool)
+    counts = np.asarray(counts, dtype=np.int64)
+    offsets = np.zeros(counts.size + 1, dtype=np.int64)
+    np.cumsum(counts.reshape(-1), out=offsets[1:])
+    return points[valid], offsets, counts
 
 
 def lm_params_from_reference(tree: Any, device: DeviceLike = None) -> Any:

@@ -1,10 +1,17 @@
 """Point -> tile bucketing (host-side data preparation).
 
-The tiled STKDE paths (the CUDA tile kernel and, later, the DD/PD
-strategies and VB-DEC) all consume *capacity-padded dense buckets*: a
-(ntx, nty, ntt, cap, 3) array of points plus a validity mask. Scatter becomes
-dense per-tile compute. A tile's valid points come first in its bucket, so
-``counts`` tells a consumer where the real points end.
+Two layouts:
+  * padded  — ``Buckets``: a (ntx, nty, ntt, cap, 3) array of points plus a
+              validity mask, every bucket as long as the fullest. A tile's
+              valid points come first, so ``counts`` tells a consumer where
+              the real points end. DD-LPT's preparation
+              (``distributed/stkde_dist.py``) and VB-DEC read it, and the
+              reference's tests hold it bit for bit.
+  * packed  — ``PackedBuckets``: the same copies back to back, tile after
+              tile, and ``offsets``, the exclusive scan of the loads. The
+              tile branch of ``stkde`` and the tile kernel read it: its
+              bytes are the copies' and not ``ntiles x cap``'s (at
+              PollenUS_VHr-Lb 0.48 GB against 47.6 GB).
 
 Two bucketing modes:
   * ``home``    — each point appears exactly once, in the tile containing its
@@ -14,17 +21,19 @@ Two bucketing modes:
                   tile self-contained at the cost of cut-cylinder work
                   overhead — the exact overhead the paper measures in Fig. 9).
 
-Each mode has two implementations of one algorithm: numpy arrays are
-bucketed on the host, as the reference does, and a torch tensor is bucketed
-on its own device (the CUDA main path copies its ``(n, 3)`` points to the
-card once and builds the buckets there). Both give the same bits: voxels
-in float64, copies enumerated point-major over the same offsets, a stable
-sort on the tile id, loads from a bincount.
+Each has two implementations of one algorithm: numpy arrays are bucketed on
+the host, as the reference does, and a torch tensor is bucketed on its own
+device (the CUDA main path copies its ``(n, 3)`` points to the card once and
+builds the buckets there). Both give the same bits: voxels in float64,
+copies enumerated point-major over the same offsets, a stable sort on the
+tile id, loads from a bincount. So a packed tile's run is its padded
+bucket's valid slots, in order.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -59,6 +68,65 @@ class Buckets:
     def replication_factor(self) -> float:
         """Average copies per point (1.0 for home; >1 measures DD overhead)."""
         return self.copies / max(1, self.n_source)
+
+
+@dataclasses.dataclass
+class PackedBuckets:
+    """Overlap buckets packed back to back: tile ``t``'s copies are
+    ``points[offsets[t]:offsets[t + 1]]``, in the order of its padded
+    bucket's valid slots. Runs start wherever the run before ends (the tile
+    kernel reads its points one float at a time, so a run needs no
+    alignment), so the layout has one slot a copy. Numpy arrays when
+    bucketed on the host, tensors on the points' device otherwise; ``loads``
+    is on the host either way."""
+
+    points: Array       # (copies, 3) float32
+    offsets: Array      # (ntiles + 1,) int64: exclusive scan of the loads
+    counts: Array       # (ntx, nty, ntt) int64 — per-tile loads
+    loads: np.ndarray   # (ntiles,) int64: ``counts`` on the host
+    tile: Tuple[int, int, int]
+    n_source: int = 1
+
+    @property
+    def ntiles(self) -> Tuple[int, int, int]:
+        return tuple(int(d) for d in self.counts.shape)
+
+    @property
+    def copies(self) -> int:
+        return int(self.points.shape[0])
+
+    @property
+    def max_load(self) -> int:
+        return int(self.loads.max()) if self.loads.size else 0
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the layout: the points and the offsets."""
+        return int(self.points.nbytes + self.offsets.nbytes)
+
+    @property
+    def replication_factor(self) -> float:
+        return self.copies / max(1, self.n_source)
+
+    # The padded layout's names, kept only for the benchmark's staged copy
+    # of the tile branch (stkde_bench/staged/tile.py), which goes with them:
+    # ``cap`` is the longest run and ``valid`` the offsets, not a mask. Each
+    # read warns, so that no padded-layout caller takes them for the mask.
+    @property
+    def cap(self) -> int:
+        padded_name("PackedBuckets.cap", "max_load")
+        return self.max_load
+
+    @property
+    def valid(self) -> Array:
+        padded_name("PackedBuckets.valid", "offsets")
+        return self.offsets
+
+
+def padded_name(name: str, packed: str) -> None:
+    """Warn that ``name`` is the padded layout's, here holding ``packed``."""
+    warnings.warn(f"{name} is a padded-layout name for the packed "
+                  f"buckets' {packed}", DeprecationWarning, stacklevel=3)
 
 
 def round_up(x: int, m: int) -> int:
@@ -238,8 +306,9 @@ def bucket_points_overlap(
     tile: Tuple[int, int, int],
     cap: Optional[int] = None,
 ) -> Buckets:
-    """Each point assigned to every tile its cylinder bbox intersects. A
-    tensor is bucketed on its device, anything else on the host."""
+    """Each point assigned to every tile its cylinder bbox intersects, in the
+    padded layout. A tensor is bucketed on its device, anything else on the
+    host."""
     on_device = isinstance(pts, torch.Tensor)
     pts = (pts.to(torch.float32) if on_device
            else np.asarray(pts, dtype=np.float32))
@@ -247,8 +316,12 @@ def bucket_points_overlap(
     nt = num_tiles(dom, tile)
     with obs_trace.span("bucketing.overlap",
                         device=pts.device if on_device else None) as sp:
-        overlap = _bucket_overlap_torch if on_device else _bucket_overlap
-        b = overlap(pts, dom, tile, nt, cap, n)
+        if on_device:
+            ids, pts_rep = _overlap_copies_torch(pts, dom, tile, nt)
+            b = _densify_torch(ids, pts_rep, nt, cap, n, tile, "overlap")
+        else:
+            ids, pts_rep = _overlap_copies(pts, dom, tile, nt)
+            b = _densify(ids, pts_rep, nt, cap, n, tile, "overlap")
         if sp.recording:
             sp.set(n=n, tiles=f"{nt[0]}x{nt[1]}x{nt[2]}", cap=b.cap,
                    replication=round(b.replication_factor, 3),
@@ -256,7 +329,61 @@ def bucket_points_overlap(
         return b
 
 
-def _bucket_overlap(pts, dom, tile, nt, cap, n) -> Buckets:
+def bucket_points_packed(
+    pts: Array,
+    dom: Domain,
+    tile: Tuple[int, int, int],
+) -> PackedBuckets:
+    """The overlap buckets of ``bucket_points_overlap``, packed. A tensor is
+    bucketed on its device, and its loads copied back to the host once (the
+    tile kernel's work plan is made there); anything else on the host."""
+    on_device = isinstance(pts, torch.Tensor)
+    pts = (pts.to(torch.float32) if on_device
+           else np.asarray(pts, dtype=np.float32))
+    n = len(pts)
+    nt = num_tiles(dom, tile)
+    dev = pts.device if on_device else None
+    with obs_trace.span("bucketing.overlap", device=dev) as sp:
+        copies = _overlap_copies_torch if on_device else _overlap_copies
+        ids, pts_rep = copies(pts, dom, tile, nt)
+        if sp.recording:
+            sp.set(n=n, tiles=f"{nt[0]}x{nt[1]}x{nt[2]}",
+                   replication=round(len(ids) / max(1, n), 3),
+                   copies=len(ids))
+    with obs_trace.span("bucketing.pack", device=dev) as sp:
+        b = (_pack_torch if on_device else _pack)(ids, pts_rep, nt, n, tile)
+        if sp.recording:
+            sp.set(copies=b.copies, slots=b.copies, bytes=b.nbytes,
+                   max_load=b.max_load)
+        return b
+
+
+def _pack(ids, pts_rep, nt, n_source, tile) -> PackedBuckets:
+    """Sort the copies by tile, stably, as ``_densify`` does, and scan the
+    loads into the runs' offsets."""
+    counts = np.bincount(ids, minlength=int(np.prod(nt)))
+    offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    order = np.argsort(ids, kind="stable")
+    return PackedBuckets(pts_rep[order], offsets, counts.reshape(nt),
+                         counts.astype(np.int64), tile, n_source)
+
+
+def _pack_torch(ids, pts_rep, nt, n_source, tile) -> PackedBuckets:
+    """``_pack`` on the device of ``ids``."""
+    counts = torch.bincount(ids, minlength=int(np.prod(nt)))
+    offsets = torch.zeros(len(counts) + 1, dtype=torch.int64,
+                          device=ids.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    _, order = torch.sort(ids, stable=True)
+    return PackedBuckets(pts_rep[order], offsets, counts.reshape(nt),
+                         counts.cpu().numpy(), tile, n_source)
+
+
+def _overlap_copies(pts, dom, tile, nt):
+    """(tile id, point) of every copy, point-major: each point's tiles in
+    the order of the offsets ``(ox, oy, ot)`` of its bbox."""
+    n = len(pts)
     vox = _point_voxels_np(pts, dom)
     lo = np.empty((n, 3), dtype=np.int64)
     hi = np.empty((n, 3), dtype=np.int64)
@@ -282,12 +409,11 @@ def _bucket_overlap(pts, dom, tile, nt, cap, n) -> Buckets:
     sel = ok.reshape(-1)
     ids = flat.reshape(-1)[sel]
     pts_rep = np.broadcast_to(pts[:, None, :], tids.shape).reshape(-1, 3)[sel]
-    return _densify(ids, pts_rep, nt, cap, n, tile, "overlap")
+    return ids, pts_rep
 
 
-def _bucket_overlap_torch(pts, dom, tile, nt, cap, n) -> Buckets:
-    """``_bucket_overlap`` on the points' device, the copies in the same
-    point-major order."""
+def _overlap_copies_torch(pts, dom, tile, nt):
+    """``_overlap_copies`` on the points' device, in the same order."""
     dev = pts.device
     i64 = dict(dtype=torch.int64, device=dev)
     vox = _point_voxels_torch(pts, dom)
@@ -309,4 +435,4 @@ def _bucket_overlap_torch(pts, dom, tile, nt, cap, n) -> Buckets:
     sel = ok.reshape(-1)
     ids = flat.reshape(-1)[sel]
     pts_rep = pts.repeat_interleave(offs.shape[0], dim=0)[sel]
-    return _densify_torch(ids, pts_rep, nt, cap, n, tile, "overlap")
+    return ids, pts_rep

@@ -5,10 +5,14 @@
 // (launched by `_stkde_tiles_pallas`). It computes the same function:
 //
 //   out[tile][x, y, t] = sum over the tile's candidate points p of
-//                        ks(u_px, v_py) * norm  *  kt(w_pt) * valid_p
+//                        ks(u_px, v_py) * norm  *  kt(w_pt)
 //
-// for every output tile (bx, by, bt) of the padded grid, from capacity-padded
-// overlap buckets pts (ntiles, cap, 3) and valid (ntiles, cap).
+// for every output tile (bx, by, bt) of the padded grid, from packed overlap
+// buckets: pts (slots, 3) holds every tile's candidate points in one run,
+// tile t's from offsets[t] to offsets[t + 1] (core/bucketing.py). The
+// reference reads capacity-padded buckets (ntiles, cap, 3) with a validity
+// mask; a run holds exactly a padded bucket's valid slots, in order, so the
+// sums are the same, term for term.
 //
 // What bounds it on this card: operations. Each (point, column) pair costs
 // one ks evaluation and its hi/lo split on the CUDA cores plus 3 * 2 * bt
@@ -41,8 +45,8 @@
 //    into Kt (once per panel and t), so A is only the support-masked shape
 //    of ks; for Epanechnikov a panel stages u*u and v*v, so a pair costs an
 //    add, a compare, a subtract and a square before its split.
-//  * Staging off the critical path. A panel's raw points (x, y, t, valid)
-//    are one coalesced load, issued into registers while the panel before
+//  * Staging off the critical path. A panel's raw points (x, y, t) are one
+//    coalesced load, issued into registers while the panel before
 //    is consumed; u, v and Kt are built from the shared copy.
 //
 // Rounding: u, v, w, r2, the support tests and kt are computed in the order
@@ -76,14 +80,14 @@ constexpr int PANEL = 64;                  // points staged per panel
 constexpr int KSTEPS = PANEL / 8;          // mma k-steps of a panel
 constexpr int FLUSH = 8;                   // k-steps summed on the tensor cores
 constexpr float OUTSIDE = 2.0f;            // u, v of a missing entry: ks = 0
-constexpr int RAW = (4 * PANEL + THREADS - 1) / THREADS;  // raw loads a thread
+constexpr int RAW = (3 * PANEL + THREADS - 1) / THREADS;  // raw loads a thread
 
 constexpr float TWO_OVER_PI = static_cast<float>(2.0 / 3.14159265358979323846);
 constexpr float PI_OVER_TWO = static_cast<float>(3.14159265358979323846 / 2.0);
 
 struct TileParams {
   float ox, oy, ot, sres, tres, hs, ht, bscale;
-  int ntx, nty, ntt, bx, by, bt, cap, us, vs, kt_id;
+  int ntx, nty, ntt, bx, by, bt, us, vs, kt_id;
 };
 
 // ks without its constant factor (ks_scale, which goes into Kt with norm),
@@ -168,29 +172,25 @@ __host__ __device__ inline int smem_stride(int n) {
 // Shared memory layout of a block, in floats.
 constexpr int SB_FLOATS = KSTEPS * 2 * 32 * 4;  // Kt hi/lo, fragment order
 constexpr int SCOL_FLOATS = COLS_PER_PASS * 2;  // (x, y) of a pass's columns
-constexpr int SRAW_FLOATS = 4 * PANEL;          // x, y, t, valid of a panel
+constexpr int SRAW_FLOATS = 3 * PANEL;          // x, y, t of a panel
 
-// The raw panel is 3 * PANEL coordinates, then PANEL valid flags: entry i of
-// the panel that starts at point q0 (0.0 past the item's end), read as one
-// coalesced run, and where it goes in the (4, PANEL) shared copy.
-__device__ __forceinline__ float load_raw(const float* seg_pts,
-                                          const float* seg_valid, int q0,
+// The raw panel is 3 * PANEL coordinates: entry i of the panel that starts at
+// point q0 (0.0 past the item's end), read as one coalesced run, and where it
+// goes in the (3, PANEL) shared copy.
+__device__ __forceinline__ float load_raw(const float* seg_pts, int q0,
                                           int len, int i) {
-  if (i < 3 * PANEL)
-    return q0 + i / 3 < len ? seg_pts[static_cast<int64_t>(q0) * 3 + i] : 0.0f;
-  const int q = i - 3 * PANEL;
-  return q < PANEL && q0 + q < len ? seg_valid[q0 + q] : 0.0f;
+  return q0 + i / 3 < len ? seg_pts[static_cast<int64_t>(q0) * 3 + i] : 0.0f;
 }
 
 __device__ __forceinline__ int raw_slot(int i) {
-  return i < 3 * PANEL ? (i % 3) * PANEL + i / 3 : i;
+  return (i % 3) * PANEL + i / 3;
 }
 
 template <int KS>
 __global__ void __launch_bounds__(THREADS, 2)
-stkde_tile_kernel(const float* __restrict__ pts,    // (ntiles, cap, 3)
-                  const float* __restrict__ valid,  // (ntiles, cap)
-                  const int4* __restrict__ items,   // (n_items) work items
+stkde_tile_kernel(const float* __restrict__ pts,        // (slots, 3)
+                  const int64_t* __restrict__ offsets,  // (ntiles + 1)
+                  const int4* __restrict__ items,       // (n_items) work items
                   float* __restrict__ out,          // (ntx*bx, nty*by, ntt*bt)
                   float* __restrict__ scratch,      // (slots, bx*by*bt)
                   const TileParams p) {
@@ -199,16 +199,14 @@ stkde_tile_kernel(const float* __restrict__ pts,    // (ntiles, cap, 3)
   int2* scol = reinterpret_cast<int2*>(smem + SB_FLOATS);
   float* su = smem + SB_FLOATS + SCOL_FLOATS;       // (PANEL, us)
   float* sv = su + PANEL * p.us;                    // (PANEL, vs)
-  float* sraw = sv + PANEL * p.vs;                  // (4, PANEL)
+  float* sraw = sv + PANEL * p.vs;                  // (3, PANEL)
 
   const int4 item = items[blockIdx.x];
   const int tile_id = item.x, first = item.y, len = item.z, slot = item.w;
   const int tk = tile_id % p.ntt;
   const int tj = (tile_id / p.ntt) % p.nty;
   const int ti = tile_id / (p.ntt * p.nty);
-  const float* seg_pts =
-      pts + (static_cast<int64_t>(tile_id) * p.cap + first) * 3;
-  const float* seg_valid = valid + static_cast<int64_t>(tile_id) * p.cap + first;
+  const float* seg_pts = pts + (offsets[tile_id] + first) * 3;
 
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int warp = static_cast<int>(threadIdx.x) >> 5;
@@ -242,7 +240,7 @@ stkde_tile_kernel(const float* __restrict__ pts,    // (ntiles, cap, 3)
       for (int r = 0; r < RAW; ++r) {
         const int i = static_cast<int>(threadIdx.x) + r * THREADS;
         if (i < SRAW_FLOATS)
-          sraw[raw_slot(i)] = load_raw(seg_pts, seg_valid, 0, len, i);
+          sraw[raw_slot(i)] = load_raw(seg_pts, 0, len, i);
       }
 
       for (int q0 = 0; q0 < len; q0 += PANEL) {
@@ -267,8 +265,7 @@ stkde_tile_kernel(const float* __restrict__ pts,    // (ntiles, cap, 3)
           if (q0 + q < len && t0 + t < p.bt) {
             const float w = offset_over_h(tk * p.bt + t0 + t, p.ot, p.tres,
                                           sraw[2 * PANEL + q], p.ht);
-            val = __fmul_rn(__fmul_rn(kt_eval(p.kt_id, w), sraw[3 * PANEL + q]),
-                            p.bscale);
+            val = __fmul_rn(kt_eval(p.kt_id, w), p.bscale);
           }
           const uint32_t hi = to_tf32(val);
           const uint32_t lo = to_tf32(__fsub_rn(val, __uint_as_float(hi)));
@@ -289,7 +286,7 @@ stkde_tile_kernel(const float* __restrict__ pts,    // (ntiles, cap, 3)
           for (int r = 0; r < RAW; ++r) {
             const int i = static_cast<int>(threadIdx.x) + r * THREADS;
             raw[r] = i < SRAW_FLOATS
-                         ? load_raw(seg_pts, seg_valid, q0 + PANEL, len, i)
+                         ? load_raw(seg_pts, q0 + PANEL, len, i)
                          : 0.0f;
           }
         }
@@ -450,12 +447,13 @@ extern "C" int stkde_tile_blocks_per_sm(int bx, int by, int ks_id) {
 }
 
 // Launches the split pass over `n_items` work items on `stream` and returns
-// cudaGetLastError() (0 = ok). `items` is (n_items, 4) int32: tile, first
-// point, length, scratch slot (-1: the tile's first item, into `out`).
-extern "C" int stkde_tile_launch(const void* pts, const void* valid,
+// cudaGetLastError() (0 = ok). `pts` is (slots, 3) float32, `offsets`
+// (ntiles + 1) int64; `items` is (n_items, 4) int32: tile, first point of its
+// run, length, scratch slot (-1: the tile's first item, into `out`).
+extern "C" int stkde_tile_launch(const void* pts, const void* offsets,
                                  const void* items, int n_items, void* out,
                                  void* scratch, int ntx, int nty, int ntt,
-                                 int bx, int by, int bt, int cap,
+                                 int bx, int by, int bt,
                                  float ox, float oy, float ot,
                                  float sres, float tres, float hs, float ht,
                                  float norm, int ks_id, int kt_id,
@@ -465,7 +463,7 @@ extern "C" int stkde_tile_launch(const void* pts, const void* valid,
   p.sres = sres; p.tres = tres; p.hs = hs; p.ht = ht;
   p.bscale = ks_scale(ks_id) * norm;
   p.ntx = ntx; p.nty = nty; p.ntt = ntt;
-  p.bx = bx; p.by = by; p.bt = bt; p.cap = cap;
+  p.bx = bx; p.by = by; p.bt = bt;
   p.us = smem_stride(bx); p.vs = smem_stride(by); p.kt_id = kt_id;
 
   const int smem = static_cast<int>(stkde_tile_smem_bytes(bx, by));
@@ -477,7 +475,7 @@ extern "C" int stkde_tile_launch(const void* pts, const void* valid,
                      : stkde_tile_kernel<KS_PAPER_VERBATIM>;
   kernel<<<static_cast<unsigned int>(n_items), THREADS,
            static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(valid),
+      static_cast<const float*>(pts), static_cast<const int64_t*>(offsets),
       static_cast<const int4*>(items), static_cast<float*>(out),
       static_cast<float*>(scratch), p);
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,9 @@
 """Public wrappers around the CUDA tile kernel.
 
 ``stkde_tiled(points, dom)`` is the tile path of single-device STKDE: copy
-the ``(n, 3)`` points to the device -> overlap bucketing there -> tile
-kernel -> slice to the domain grid. On the CPU the plain version runs in the
-kernel's place.
+the ``(n, 3)`` points to the device -> overlap bucketing there, packed ->
+tile kernel -> slice to the domain grid. On the CPU the plain version runs in
+the kernel's place.
 """
 from __future__ import annotations
 
@@ -41,42 +41,20 @@ def prepare_tiles(
     points,
     dom: Domain,
     tile: Tuple[int, int, int],
-    cap: Optional[int] = None,
     chunk: int = 256,
-) -> Tuple[bucketing.Buckets, int]:
-    """Overlap-bucket the points, pad ``cap`` to a multiple of ``chunk`` and
-    halve ``chunk`` until it divides ``cap``. Returns the padded buckets and
-    the effective chunk. A tensor is bucketed and padded on its device;
+) -> Tuple[bucketing.PackedBuckets, int]:
+    """Overlap-bucket the points and pack them. Returns the packed buckets
+    and the plain version's panel: ``chunk``, or the longest run rounded up
+    to 8 where that is shorter. A tensor is bucketed on its device;
     anything else on the host, as numpy arrays."""
-    b = bucketing.bucket_points_overlap(points, dom, tile, cap=cap)
-    cap_eff = bucketing.round_up(b.cap, min(chunk, bucketing.round_up(b.cap, 8)))
-    if cap_eff != b.cap:
-        pad = cap_eff - b.cap
-        on_device = isinstance(b.points, torch.Tensor)
-        with obs_trace.span("bucketing.pad", device=b.points.device
-                            if on_device else None) as sp:
-            if on_device:
-                b.points = torch.nn.functional.pad(b.points, (0, 0, 0, pad))
-                b.valid = torch.nn.functional.pad(b.valid, (0, pad))
-            else:
-                b.points = np.pad(b.points,
-                                  ((0, 0),) * 3 + ((0, pad), (0, 0)))
-                b.valid = np.pad(b.valid, ((0, 0),) * 3 + ((0, pad),))
-            if sp.recording:
-                sp.set(cap=b.cap, to=cap_eff)
-        b.cap = cap_eff
-    chunk_eff = min(chunk, cap_eff)
-    # make chunk divide cap
-    while cap_eff % chunk_eff:
-        chunk_eff //= 2
-    return b, chunk_eff
+    b = bucketing.bucket_points_packed(points, dom, tile)
+    return b, min(chunk, bucketing.round_up(max(b.max_load, 1), 8))
 
 
 def stkde_tiled(
     points: np.ndarray,
     dom: Domain,
     tile: Optional[Tuple[int, int, int]] = None,
-    cap: Optional[int] = None,
     chunk: int = 256,
     ks: km.SpatialKernel = km.DEFAULT_KS,
     kt: km.TemporalKernel = km.DEFAULT_KT,
@@ -89,27 +67,26 @@ def stkde_tiled(
 
     ``mode`` ("auto" | "reference" | "compiled") selects what runs — see
     ``stkde_tiles_cuda``. ``use_ref=True`` calls the plain version directly.
-    The points are copied to the device once and bucketed there. The kernel
-    is given the tiles' true loads on the host (one copy of ``ntiles`` ints
-    back from the device), so a tile's walk ends with its last real point
-    and not at the padded capacity.
+    The points are copied to the device once and bucketed there into packed
+    buckets; the bucketing copies the tiles' loads back to the host once
+    (the longest run), and the kernel's work plan is made there from the
+    offsets, copied back once.
     """
     n = len(points)
     if tile is None:
         tile = default_tile(dom)
     dev = resolve_device(device)
     b, chunk_eff = prepare_tiles(points_to_device(points, dev), dom, tile,
-                                 cap=cap, chunk=chunk)
+                                 chunk=chunk)
     with obs_trace.span("stkde.tile.inputs", device=dev):
-        t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile,
-                                     b.cap, device=dev)
-        counts = t.counts if use_ref else t.counts.cpu()
+        t = convert.buckets_to_torch(b.points, b.offsets, b.counts, tile,
+                                     b.max_load, device=dev)
     if use_ref:
-        padded = _ref.stkde_tiles_ref(t.pts_tiles, t.valid_tiles, dom, tile,
-                                      n, ks, kt, counts=counts)
+        padded = _ref.stkde_tiles_ref(t.points, t.offsets, dom, tile, n, ks,
+                                      kt, panel=chunk_eff)
     else:
         padded = stkde_tiles_cuda(
-            t.pts_tiles, t.valid_tiles, dom, tile, t.cap, n, chunk_eff,
-            ks, kt, mode=mode, counts=counts,
+            t.points, t.offsets, dom, tile, t.cap, n, chunk_eff, ks, kt,
+            mode=mode,
         )
     return padded[: dom.Gx, : dom.Gy, : dom.Gt]

@@ -7,13 +7,14 @@ density a contraction over its candidate points,
     density[bx, by, bt]  =  sum_p Ks_p[bx, by] * Kt_p[bt]
 
 which the CUDA kernel computes on the tensor cores (3xTF32), with the points
-arriving pre-bucketed per tile (host-side overlap bucketing,
-``core/bucketing.py``). Tiles hold very different numbers of points, so the
-kernel's grid is not the tiles but a plan of work items (``plan_segments``):
-each item is at most ``seg`` consecutive points of one tile, a heavy tile is
-split over many blocks, and a second small pass adds the partial tiles in a
-fixed order. See the note at the top of the ``.cu`` for what bounds it and
-what the design does about that.
+arriving in packed overlap buckets (``core/bucketing.py::PackedBuckets``:
+every tile's copies in one run, found by its offset). Tiles hold very
+different numbers of points, so the kernel's grid is not the tiles but a
+plan of work items (``plan_segments``): each item is at most ``seg``
+consecutive points of one tile, a heavy tile is split over many blocks, and
+a second small pass adds the partial tiles in a fixed order. See the note at
+the top of the ``.cu`` for what bounds it and what the design does about
+that.
 
 Where the tensors live decides what runs: CUDA tensors launch the kernel (or
 raise ``KernelUnavailableError``), CPU tensors run the plain version
@@ -28,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import bucketing
 from ..core.geometry import Domain
 from ..core import kernels_math as km
 from ..obs import metrics as obs_metrics
@@ -87,18 +89,18 @@ def walked_pairs(plan: SegmentPlan, tile: Tuple[int, int, int]) -> int:
     return int(((lengths + 7) // 8 * 8).sum()) * int(np.prod(tile))
 
 
-def plan_counts(plan: SegmentPlan, cap: int,
+def plan_counts(plan: SegmentPlan, slots: int,
                 tile: Tuple[int, int, int]) -> dict:
     """What the ``stkde.tile.plan`` span reports of a plan: its tiles (each
     has an item), work items, split tiles and ``seg``; the point copies in
     the buckets (``copies``, the items' lengths, which sum to the loads) and
-    the bucket slots they sit in (``slots``, tiles x ``cap``); and the
-    pairs the kernel walks."""
+    the slots of the packed buckets they sit in (``slots``); and the pairs
+    the kernel walks."""
     tiles = int(plan.items[:, 0].max()) + 1 if plan.segments else 0
     return {"tiles": tiles, "items": plan.segments,
             "split_tiles": len(plan.reduce), "seg": plan.seg,
             "copies": int(plan.items[:, 2].astype(np.int64).sum()),
-            "slots": tiles * int(cap), "walked_pairs": walked_pairs(plan, tile)}
+            "slots": int(slots), "walked_pairs": walked_pairs(plan, tile)}
 
 
 def choose_seg(total_walk: int, sms: int, blocks_per_sm: int,
@@ -149,7 +151,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.stkde_tile_launch
     if fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([ptr] * 3 + [i32] + [ptr] * 2 + [i32] * 7 + [f32] * 8
+        fn.argtypes = ([ptr] * 3 + [i32] + [ptr] * 2 + [i32] * 6 + [f32] * 8
                        + [i32] * 2 + [ptr])
         fn.restype = i32
         lib.stkde_tile_reduce_launch.argtypes = (
@@ -227,39 +229,56 @@ class Prepared(NamedTuple):
     items: torch.Tensor
     reduce: torch.Tensor
     tile: Tuple[int, int, int]
-    cap: int
+    ntiles: Tuple[int, int, int]
     ks_id: int
     kt_id: int
     norm: float
     dom: Domain
 
 
-def _prepare(pts_tiles, valid_tiles, counts, dom, tile, cap, n_total, chunk,
-             ks, kt, seg) -> Prepared:
+def _tile_loads(offsets: torch.Tensor, counts, ntiles: int) -> np.ndarray:
+    """The tiles' loads on the host: the differences of the offsets (one
+    copy back). ``counts`` (host or device, any shape of ``ntiles`` values),
+    where given, must hold the same loads tile by tile: a load that is not
+    its run's length would send the kernel into another tile's points, or
+    past the last run."""
+    runs = offsets.cpu().numpy()
+    if runs.size and runs[0] != 0:
+        raise ValueError(f"the first run starts at {runs[0]}, not at 0")
+    loads = np.diff(runs)
+    if counts is None:
+        return loads
+    given = torch.as_tensor(counts).cpu().numpy().astype(np.int64).reshape(-1)
+    if given.size != ntiles:
+        raise ValueError(f"counts hold {given.size} loads for {ntiles} tiles")
+    wrong = np.flatnonzero(given != loads)
+    if wrong.size:
+        raise ValueError(
+            f"counts differ from the offsets' runs at {wrong.size} tiles "
+            f"(tile {wrong[0]}: {given[wrong[0]]} counted, a run of "
+            f"{loads[wrong[0]]})")
+    return loads
+
+
+def _prepare(points, offsets, counts, dom, tile, cap, n_total, ks, kt,
+             seg) -> Prepared:
     """Check the arguments, plan the work items on the host and start one
     non-blocking copy of the plan to the tensors' device."""
     ks_id = km.spatial_kernel_id(ks)
     kt_id = km.temporal_kernel_id(kt)
     bx, by, bt = tile
-    ntx, nty, ntt = pts_tiles.shape[:3]
-    dev = pts_tiles.device
-    _check(pts_tiles, "pts_tiles", (ntx, nty, ntt, cap, 3), torch.float32)
-    _check(valid_tiles, "valid_tiles", (ntx, nty, ntt, cap), torch.float32)
-    if valid_tiles.device != dev:
-        raise ValueError("pts_tiles and valid_tiles must be on one device")
-    if counts is not None:
-        _check(counts, "counts", (ntx, nty, ntt), torch.int32)
-        if counts.device not in (dev, torch.device("cpu")):
-            raise ValueError(
-                "counts must be on the host or on the device of pts_tiles")
-    if min(bx, by, bt, cap, chunk) < 1 or cap % chunk:
-        raise ValueError(
-            f"chunk must divide cap and tile be positive; got tile={tile} "
-            f"cap={cap} chunk={chunk}")
-    ntiles = ntx * nty * ntt
-    if ntiles >= 2**31 or cap >= 2**31 - PANEL or bx * by * bt >= 2**31:
-        raise ValueError(f"too many tiles ({ntiles}), cap ({cap}) or tile "
-                         f"{tile} too large")
+    nt = bucketing.num_tiles(dom, tile)
+    ntiles = int(np.prod(nt))
+    dev = points.device
+    _check(points, "points", (points.shape[0], 3), torch.float32)
+    _check(offsets, "offsets", (ntiles + 1,), torch.int64)
+    if offsets.device != dev:
+        raise ValueError("points and offsets must be on one device")
+    if min(bx, by, bt) < 1:
+        raise ValueError(f"tile must be positive; got tile={tile}")
+    if ntiles >= 2**31 or bx * by * bt >= 2**31:
+        raise ValueError(f"too many tiles ({ntiles}) or tile {tile} too "
+                         "large")
 
     lib = _library()
     smem = lib.stkde_tile_smem_bytes(bx, by)
@@ -268,9 +287,13 @@ def _prepare(pts_tiles, valid_tiles, counts, dom, tile, cap, n_total, chunk,
             f"a panel of {PANEL} points for tile {tile} needs {smem} bytes "
             f"of shared memory; a block has {MAX_SMEM_BYTES}: lower the tile")
 
-    # the plan is made on the host: from host counts it costs no sync
-    loads = (np.full(ntiles, cap, dtype=np.int64) if counts is None
-             else np.minimum(counts.cpu().numpy().reshape(-1), cap))
+    # the plan is made on the host, from the offsets copied back
+    loads = _tile_loads(offsets, counts, ntiles)
+    if loads.size and (loads.min() < 0 or loads.max() > cap
+                       or loads.sum() != points.shape[0]):
+        raise ValueError(
+            f"the loads (largest {loads.max()}, {loads.sum()} in all) are "
+            f"not runs of the {points.shape[0]} points under cap {cap}")
     if seg is None:
         seg = default_seg(loads, tile, dev, ks)
     plan = plan_segments(loads, seg)
@@ -279,27 +302,26 @@ def _prepare(pts_tiles, valid_tiles, counts, dom, tile, cap, n_total, chunk,
     table = table.pin_memory().to(dev, non_blocking=True)
     n_items = plan.items.size
     return Prepared(lib, plan, table[:n_items].view(-1, 4),
-                    table[n_items:].view(-1, 3), tuple(tile),
-                    cap, ks_id, kt_id, km.normalization(n_total, dom.hs,
-                                                        dom.ht), dom)
+                    table[n_items:].view(-1, 3), tuple(tile), nt, ks_id,
+                    kt_id, km.normalization(n_total, dom.hs, dom.ht), dom)
 
 
-def _run(prep: Prepared, pts_tiles, valid_tiles) -> torch.Tensor:
+def _run(prep: Prepared, points, offsets) -> torch.Tensor:
     """Launch the split pass and the reduction of a prepared plan on the
     current stream of the tensors' device; return the padded grid (not
     synchronised)."""
     bx, by, bt = prep.tile
-    ntx, nty, ntt = pts_tiles.shape[:3]
-    dev, dom, plan = pts_tiles.device, prep.dom, prep.plan
+    ntx, nty, ntt = prep.ntiles
+    dev, dom, plan = points.device, prep.dom, prep.plan
     out = torch.empty((ntx * bx, nty * by, ntt * bt), dtype=torch.float32,
                       device=dev)
     scratch = torch.empty(plan.slots * bx * by * bt, dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
         err = prep.lib.stkde_tile_launch(
-            pts_tiles.data_ptr(), valid_tiles.data_ptr(),
+            points.data_ptr(), offsets.data_ptr(),
             prep.items.data_ptr(), plan.segments, out.data_ptr(),
-            scratch.data_ptr(), ntx, nty, ntt, bx, by, bt, prep.cap,
+            scratch.data_ptr(), ntx, nty, ntt, bx, by, bt,
             dom.ox, dom.oy, dom.ot, dom.sres, dom.tres, dom.hs, dom.ht,
             prep.norm, prep.ks_id, prep.kt_id,
             torch.cuda.current_stream().cuda_stream,
@@ -307,30 +329,30 @@ def _run(prep: Prepared, pts_tiles, valid_tiles) -> torch.Tensor:
         if err != 0:
             raise KernelUnavailableError(
                 f"stkde_tile kernel launch failed with CUDA error {err} "
-                f"(tile={prep.tile} cap={prep.cap} seg={plan.seg})")
+                f"(tile={prep.tile} seg={plan.seg})")
         if plan.reduce.shape[0]:
-            _reduce(prep.lib, prep.reduce, scratch, out, (ntx, nty, ntt),
+            _reduce(prep.lib, prep.reduce, scratch, out, prep.ntiles,
                     prep.tile)
     return out
 
 
-def _launch(pts_tiles, valid_tiles, counts, dom, tile, cap, n_total, chunk,
-            ks, kt, seg) -> torch.Tensor:
-    dev = pts_tiles.device
+def _launch(points, offsets, counts, dom, tile, cap, n_total, ks, kt,
+            seg) -> torch.Tensor:
+    dev = points.device
     with obs_trace.span("stkde.tile.plan", device=dev) as sp:
-        prep = _prepare(pts_tiles, valid_tiles, counts, dom, tile, cap,
-                        n_total, chunk, ks, kt, seg)
+        prep = _prepare(points, offsets, counts, dom, tile, cap, n_total,
+                        ks, kt, seg)
         if sp.recording:
-            sp.set(**plan_counts(prep.plan, prep.cap, prep.tile))
+            sp.set(**plan_counts(prep.plan, points.shape[0], prep.tile))
     with obs_trace.span("stkde.tile.launch", device=dev):
-        out = _run(prep, pts_tiles, valid_tiles)
+        out = _run(prep, points, offsets)
     obs_metrics.counter(LAUNCHES).inc()
     return out
 
 
 def stkde_tiles_cuda(
-    pts_tiles: torch.Tensor,    # (ntx, nty, ntt, cap, 3) f32
-    valid_tiles: torch.Tensor,  # (ntx, nty, ntt, cap) f32
+    points: torch.Tensor,   # (copies, 3) f32, packed overlap buckets
+    offsets: torch.Tensor,  # (ntiles + 1,) int64
     dom: Domain,
     tile: Tuple[int, int, int],
     cap: int,
@@ -339,10 +361,13 @@ def stkde_tiles_cuda(
     ks: km.SpatialKernel = km.DEFAULT_KS,
     kt: km.TemporalKernel = km.DEFAULT_KT,
     mode: str = "auto",
-    counts: Optional[torch.Tensor] = None,  # (ntx, nty, ntt) int32
+    counts: Optional[torch.Tensor] = None,  # (ntx, nty, ntt) tile loads
     seg: Optional[int] = None,
 ) -> torch.Tensor:
-    """Padded density grid (ntx*bx, nty*by, ntt*bt).
+    """Padded density grid (ntx*bx, nty*by, ntt*bt) from packed buckets
+    (``convert.TileInputs``): tile ``t``'s points are
+    ``points[offsets[t]:offsets[t + 1]]``, the tiles those of
+    ``bucketing.num_tiles(dom, tile)`` in row-major order.
 
     ``mode`` selects what runs: ``"compiled"`` launches the CUDA kernel and
     raises ``KernelUnavailableError`` for CPU tensors; ``"reference"`` runs
@@ -351,24 +376,23 @@ def stkde_tiles_cuda(
     tensors. ``ks``/``kt`` must be callables of ``kernels_math`` when the
     kernel runs; the plain version takes any callable.
 
-    ``counts`` are the tiles' true loads (``Buckets.counts``), on the host
-    (no sync) or on the device. A bucket holds its valid points first, so
-    with ``counts`` a tile's walk stops at its last valid point instead of at
-    ``cap``; the terms left out are exact zeros. ``seg`` is the longest work
-    item of the kernel (``None``: ``default_seg``); under one ``seg`` the run
-    with ``counts`` and the run over whole buckets are bit-identical.
-    ``chunk`` must divide ``cap``, as in the reference; the kernel stages
-    its own ``PANEL``-point panels.
+    The kernel's plan takes the loads from the offsets (one copy back).
+    ``cap`` bounds them (``PackedBuckets.max_load``); a load past it is
+    refused. ``counts`` (``PackedBuckets.loads`` or ``counts``, on the host
+    or the device), where given, are checked against the offsets' runs tile
+    by tile. ``seg`` is the longest work item of the kernel (``None``:
+    ``default_seg``). ``chunk`` is the plain version's panel; the kernel
+    stages its own ``PANEL``-point panels.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    on_cuda = pts_tiles.is_cuda
+    on_cuda = points.is_cuda
     if mode == "compiled" and not on_cuda:
         raise KernelUnavailableError(
             "mode='compiled' needs CUDA tensors; the tile kernel has no CPU "
             "form (mode='reference' runs the plain version)")
     if mode == "reference" or not on_cuda:
-        return stkde_tiles_ref(pts_tiles, valid_tiles, dom, tile, n_total,
-                               ks, kt, counts=counts)
-    return _launch(pts_tiles, valid_tiles, counts, dom, tile, cap, n_total,
-                   min(chunk, cap), ks, kt, seg)
+        return stkde_tiles_ref(points, offsets, dom, tile, n_total, ks, kt,
+                               panel=chunk)
+    return _launch(points, offsets, counts, dom, tile, cap, n_total, ks, kt,
+                   seg)

@@ -64,23 +64,22 @@ def test_cap_too_small_raises():
 
 @pytest.mark.parametrize("chunk", [8, 64, 256])
 def test_prepare_tiles_padding_matches_reference_arithmetic(chunk):
-    """cap is padded to a multiple of chunk and chunk halves until it divides,
-    as repro.kernels.ops.stkde_tiled does before it calls its kernel."""
+    """The tile path packs where repro.kernels.ops.stkde_tiled pads: its runs
+    are the reference's buckets' valid slots, with no slot between them, and
+    the panel it hands on is ``chunk`` or the longest run rounded up to 8."""
     ref, dom, pts = _case((33, 25, 17), 3.0, 2.0)
     tile = (8, 8, 8)
     raw = ref_bucketing.bucket_points_overlap(pts, ref, tile)
-    cap_eff = ref_bucketing.round_up(
-        raw.cap, min(chunk, ref_bucketing.round_up(raw.cap, 8)))
-    chunk_eff = min(chunk, cap_eff)
-    while cap_eff % chunk_eff:
-        chunk_eff //= 2
     b, got_chunk = ops.prepare_tiles(pts, dom, tile, chunk=chunk)
-    assert (b.cap, got_chunk) == (cap_eff, chunk_eff)
-    assert b.points.shape[3] == cap_eff and b.valid.shape[3] == cap_eff
-    np.testing.assert_array_equal(b.points[..., :raw.cap, :], raw.points)
-    np.testing.assert_array_equal(b.valid[..., :raw.cap], raw.valid)
-    assert not b.valid[..., raw.cap:].any()
-    assert not b.points[..., raw.cap:, :].any()
+    assert isinstance(b, bucketing.PackedBuckets)
+    assert (b.cap, got_chunk) == (
+        int(raw.counts.max()),
+        min(chunk, ref_bucketing.round_up(int(raw.counts.max()), 8)))
+    assert b.points.shape == (int(raw.counts.sum()), 3)
+    np.testing.assert_array_equal(b.points, raw.points[raw.valid])
+    np.testing.assert_array_equal(b.counts, raw.counts)
+    np.testing.assert_array_equal(np.diff(b.offsets), raw.counts.reshape(-1))
+    assert b.offsets[0] == 0 and b.offsets[-1] == b.copies
 
 
 @pytest.mark.parametrize("on_device", [False, True], ids=["numpy", "torch"])
@@ -188,7 +187,7 @@ def test_torch_cap_too_small_raises(mode):
 
 @pytest.mark.parametrize("chunk", [8, 64, 256])
 def test_prepare_tiles_on_a_tensor_equals_the_host(chunk):
-    """The tile path's device preparation (bucket + pad on the tensor's
+    """The tile path's device preparation (bucket + pack on the tensor's
     device) gives the host preparation's arrays and chunk."""
     ref, dom, pts = _case((33, 25, 17), 3.0, 2.0)
     want, want_chunk = ops.prepare_tiles(pts, dom, (8, 8, 8), chunk=chunk)
@@ -196,5 +195,6 @@ def test_prepare_tiles_on_a_tensor_equals_the_host(chunk):
                                        chunk=chunk)
     assert (got.cap, got_chunk) == (want.cap, want_chunk)
     np.testing.assert_array_equal(got.points.numpy(), want.points)
-    np.testing.assert_array_equal(got.valid.numpy(), want.valid)
+    np.testing.assert_array_equal(got.offsets.numpy(), want.offsets)
     np.testing.assert_array_equal(got.counts.numpy(), want.counts)
+    np.testing.assert_array_equal(got.loads, want.loads)

@@ -186,7 +186,7 @@ def _small_query():
 
 QUERY_SPANS = {
     "tile": {"stkde.query", "stkde.validate", "stkde.h2d",
-             "bucketing.overlap", "bucketing.pad", "stkde.tile.inputs",
+             "bucketing.overlap", "bucketing.pack", "stkde.tile.inputs",
              "stkde.finish"},
     "pb": {"stkde.query", "stkde.validate", "stkde.h2d", "stkde.scatter",
            "stkde.finish"},

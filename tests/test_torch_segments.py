@@ -112,17 +112,17 @@ def _walk_by_hand(plan: SegmentPlan, tile) -> int:
 def test_walked_pairs_match_a_walk_by_hand(loads, seg, tile):
     plan = plan_segments(loads, seg)
     assert walked_pairs(plan, tile) == _walk_by_hand(plan, tile)
-    got = plan_counts(plan, 1024, tile)
+    got = plan_counts(plan, sum(loads), tile)
     assert got == {"tiles": len(loads), "items": plan.segments,
                    "split_tiles": len(plan.reduce), "seg": seg,
-                   "copies": sum(loads), "slots": len(loads) * 1024,
+                   "copies": sum(loads), "slots": sum(loads),
                    "walked_pairs": _walk_by_hand(plan, tile)}
 
 
 def test_plan_without_counts_covers_cap():
-    """The wrapper plans a launch without counts over cap for every tile:
-    the run over whole buckets is cut at the same multiples of seg, so its
-    first items hold the same real points as the run that stops at counts."""
+    """A plan over cap for every tile (a padded layout's whole buckets) is
+    cut at the same multiples of seg as the plan over the loads, so its
+    first items hold the same real points as the plan over the loads."""
     cap, seg = 640, 128
     counts = np.array([0, 5, 128, 300, 640])
     whole = plan_segments(np.full(len(counts), cap), seg)

@@ -1,9 +1,10 @@
 """Port vs reference: the tile path on the CPU.
 
 The port's plain version is held against the reference's jnp oracle and
-against the Pallas kernel in interpret mode, on the same bucket arrays; then
-the port's counterparts of every test of tests/test_stkde_pallas.py run, each
-also held against the reference's result.
+against the Pallas kernel in interpret mode, on the same buckets (the
+reference's padded arrays, packed as the port holds them); then the port's
+counterparts of every test of tests/test_stkde_pallas.py run, each also held
+against the reference's result.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -50,25 +51,26 @@ def test_plain_version_vs_reference_oracle_and_pallas(grid, hs, ht, tile):
     pallas = np.asarray(stkde_tiles_pallas(
         *jargs, ref, tile, b.cap, len(pts), chunk, mode="interpret"))
 
-    t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile, b.cap,
-                                 device="cpu")
-    np.testing.assert_array_equal(t.pts_tiles.numpy(), b.points)
-    got = stkde_tiles_ref(t.pts_tiles, t.valid_tiles, dom, tile, len(pts))
+    t = convert.buckets_to_torch(
+        *convert.reference_buckets(b.points, b.valid, b.counts), tile,
+        int(b.counts.max()), device="cpu")
+    np.testing.assert_array_equal(t.points.numpy(), b.points[b.valid])
+    got = stkde_tiles_ref(t.points, t.offsets, dom, tile, len(pts))
     assert got.dtype == torch.float32 and got.shape == oracle.shape
     np.testing.assert_allclose(got.numpy(), oracle, **TOL)
     np.testing.assert_allclose(got.numpy(), pallas, **TOL)
-    # stopping at each tile's true load, and a small panel, give the same sum
-    early = stkde_tiles_ref(t.pts_tiles, t.valid_tiles, dom, tile, len(pts),
-                            counts=t.counts, panel=16)
+    # a small panel gives the same sum
+    early = stkde_tiles_ref(t.points, t.offsets, dom, tile, len(pts),
+                            panel=16)
     np.testing.assert_allclose(early.numpy(), got.numpy(), rtol=1e-6,
                                atol=1e-9)
     # the wrapper on CPU tensors is the plain version
-    auto = stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, tile, t.cap,
+    auto = stkde_tiles_cuda(t.points, t.offsets, dom, tile, t.cap,
                             len(pts), chunk, counts=t.counts)
     np.testing.assert_array_equal(
         auto.numpy(),
-        stkde_tiles_ref(t.pts_tiles, t.valid_tiles, dom, tile, len(pts),
-                        counts=t.counts).numpy())
+        stkde_tiles_ref(t.points, t.offsets, dom, tile, len(pts),
+                        panel=chunk).numpy())
 
 
 # ------------------------------ counterparts of tests/test_stkde_pallas.py
@@ -169,8 +171,9 @@ def _small_inputs():
     pts = clustered_events(60, ref, seed=3)
     tile = (8, 8, 8)
     b = ref_bucketing.bucket_points_overlap(pts, ref, tile)
-    t = convert.buckets_to_torch(b.points, b.valid, b.counts, tile, b.cap,
-                                 device="cpu")
+    t = convert.buckets_to_torch(
+        *convert.reference_buckets(b.points, b.valid, b.counts), tile,
+        int(b.counts.max()), device="cpu")
     return dom, t, len(pts)
 
 
@@ -180,20 +183,20 @@ def test_compiled_mode_on_cpu_tensors_raises():
     launches = metrics.counter(stkde_tile.LAUNCHES)
     before = launches.value
     with pytest.raises(KernelUnavailableError, match="compiled"):
-        stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, t.tile, t.cap, n,
+        stkde_tiles_cuda(t.points, t.offsets, dom, t.tile, t.cap, n,
                          mode="compiled")
     assert launches.value == before   # nothing was launched
     with pytest.raises(ValueError, match="mode"):
-        stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, t.tile, t.cap, n,
+        stkde_tiles_cuda(t.points, t.offsets, dom, t.tile, t.cap, n,
                          mode="interpret")
     assert stkde_tile.MODES == ("auto", "reference", "compiled")
 
 
 def test_reference_mode_is_the_plain_version():
     dom, t, n = _small_inputs()
-    a = stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, t.tile, t.cap, n,
+    a = stkde_tiles_cuda(t.points, t.offsets, dom, t.tile, t.cap, n,
                          mode="reference")
-    b = stkde_tiles_ref(t.pts_tiles, t.valid_tiles, dom, t.tile, n)
+    b = stkde_tiles_ref(t.points, t.offsets, dom, t.tile, n, panel=256)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -204,7 +207,7 @@ def test_unknown_ks_runs_on_cpu_and_is_refused_by_the_id_lookup():
         r = torch.sqrt(u * u + v * v)
         return torch.where(r < 1.0, 1.0 - r, 0.0)
 
-    out = stkde_tiles_cuda(t.pts_tiles, t.valid_tiles, dom, t.tile, t.cap, n,
+    out = stkde_tiles_cuda(t.points, t.offsets, dom, t.tile, t.cap, n,
                            ks=ks_cone)
     assert torch.isfinite(out).all() and out.sum() > 0
     with pytest.raises(KernelUnavailableError, match="ks_cone"):
@@ -213,17 +216,43 @@ def test_unknown_ks_runs_on_cpu_and_is_refused_by_the_id_lookup():
 
 def test_buckets_to_torch_checks_shapes():
     dom, t, n = _small_inputs()
-    pts = t.pts_tiles.numpy()
+    pts = t.points.numpy()
     with pytest.raises(ValueError, match="points must be"):
-        convert.buckets_to_torch(pts, t.valid_tiles.numpy(),
+        convert.buckets_to_torch(pts[:, :2], t.offsets.numpy(),
                                  t.counts.numpy(), t.tile, t.cap + 8,
                                  device="cpu")
-    with pytest.raises(ValueError, match="do not match"):
-        convert.buckets_to_torch(pts, t.valid_tiles.numpy()[..., :-1],
+    with pytest.raises(ValueError, match="do not make"):
+        convert.buckets_to_torch(pts, t.offsets.numpy()[:-1],
                                  t.counts.numpy(), t.tile, t.cap,
                                  device="cpu")
     with pytest.raises(KernelUnavailableError):
         if torch.cuda.is_available():
             raise KernelUnavailableError("a card is present")
-        convert.buckets_to_torch(pts, t.valid_tiles.numpy(),
+        convert.buckets_to_torch(pts, t.offsets.numpy(),
                                  t.counts.numpy(), t.tile, t.cap)
+    # the padded layout's names read the packed arrays, and warn
+    with pytest.warns(DeprecationWarning, match="points"):
+        assert t.pts_tiles is t.points
+    with pytest.warns(DeprecationWarning, match="offsets"):
+        assert t.valid_tiles is t.offsets
+
+
+def test_the_plan_takes_the_loads_from_the_offsets():
+    """The kernel's plan reads each tile's load off its run; counts that
+    disagree with the runs tile by tile (even with the same sum and
+    largest load) are refused, not planned."""
+    dom, t, n = _small_inputs()
+    ntiles = t.counts.numel()
+    want = np.diff(t.offsets.numpy())
+    for counts in (None, t.counts, t.counts.numpy()):
+        np.testing.assert_array_equal(
+            stkde_tile._tile_loads(t.offsets, counts, ntiles), want)
+    swapped = t.counts.numpy().reshape(-1).copy()
+    i, j = np.flatnonzero(swapped != swapped[0])[0], 0
+    swapped[[i, j]] = swapped[[j, i]]
+    with pytest.raises(ValueError, match="differ from the offsets' runs"):
+        stkde_tile._tile_loads(t.offsets, swapped, ntiles)
+    with pytest.raises(ValueError, match="loads for"):
+        stkde_tile._tile_loads(t.offsets, swapped[1:], ntiles)
+    with pytest.raises(ValueError, match="starts at 3"):
+        stkde_tile._tile_loads(t.offsets + 3, None, ntiles)
